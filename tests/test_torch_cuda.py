@@ -1,0 +1,98 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``; each test skips where there is no CUDA device.  Run on a
+GPU machine with:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+Shapes cover ragged widths (W not a multiple of 4, H below and above 32
+lanes, several outputs C), packet rows whose stride is not a multiple of
+16 bytes, and strided payload views of the packet rows.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import bank as tbank
+from repro_torch.kernels import bnn_xnor, fused_forward as ff, ref
+
+pytestmark = pytest.mark.cuda
+
+ATOL, RTOL = 1e-5, 1e-6
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _words(rng, shape, dev):
+    a = rng.integers(0, 2**32, shape, dtype=np.uint32)
+    return torch.from_numpy(a.view(np.int32)).to(dev)
+
+
+def _bank(rng, k, w, h, c, dev):
+    return tbank.stack_bank([ref.random_bnn_params(rng, 32 * w, h, c, device=dev)
+                             for _ in range(k)])
+
+
+@pytest.mark.parametrize("w,h,c", [(64, 16, 1), (256, 32, 1), (36, 20, 3), (7, 1, 2)])
+@pytest.mark.parametrize("meta,gather", [(16, True), (0, True), (16, False), (0, False)])
+def test_fused_kernel_matches_plain(dev, w, h, c, meta, gather):
+    rng = np.random.default_rng(w * 100 + h)
+    k, b, bb = 5, 77, 32
+    bank = _bank(rng, k, w, h, c, dev)
+    rows = _words(rng, (b, 16 + w), dev)
+    rows[:, 2] = torch.from_numpy(rng.integers(0, 2, b)).to(dev, torch.int32)
+    x = rows[:, 16 - meta:]  # meta=0: a strided payload view
+    g = tbank.group_by_slot_padded(
+        torch.from_numpy(rng.integers(0, k, b)).to(dev), k, bb)
+    if not gather:
+        x = tbank.scatter_padded(x, g)
+    args = (x, bank["w1p"], bank["b1"], bank["w2"], bank["b2"], g.block_slots,
+            g.row_ids if gather else None)
+    kw = dict(block_b=bb, meta_words=meta, with_actions=meta > 0)
+    before = sum(ff.fused_forward.launches.values())
+    got = ff.fused_forward(*args, **kw)
+    want = ff.fused_forward_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert sum(ff.fused_forward.launches.values()) == before + 1
+    if meta:
+        assert torch.equal(got[1], want[1])
+        got, want = got[0], want[0]
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 32, 256), (33, 40, 64), (100, 7, 9), (8192, 32, 256)])
+def test_xnor_kernel_matches_plain(dev, b, h, w):
+    rng = np.random.default_rng(b + h + w)
+    x = _words(rng, (b, w + 3), dev)[:, 3:]  # rows with a stride of w + 3 words
+    wts = _words(rng, (h, w), dev)
+    before = bnn_xnor.xnor_matmul.launches
+    got = bnn_xnor.xnor_matmul(x, wts)
+    torch.cuda.synchronize()
+    assert bnn_xnor.xnor_matmul.launches == before + 1
+    assert torch.equal(got, ref.xnor_matmul_ref(x, wts))
+
+
+def test_kernels_reject_what_they_cannot_take(dev):
+    rng = np.random.default_rng(0)
+    bank = _bank(rng, 2, 8, 33, 1, dev)
+    x = _words(rng, (8, 8), dev)
+    slots = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="hidden"):
+        ff.fused_forward(x, bank["w1p"], bank["b1"], bank["w2"], bank["b2"],
+                         slots, block_b=8)
+    bank = _bank(rng, 2, 8, 8, 1, dev)
+    with pytest.raises(ValueError, match="one device"):
+        ff.fused_forward(x, bank["w1p"].cpu(), bank["b1"], bank["w2"],
+                         bank["b2"], slots, block_b=8)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        bnn_xnor.xnor_matmul(_words(rng, (1, 2048), dev), _words(rng, (1, 2048), dev))
+    with pytest.raises(RuntimeError, match="shared memory"):
+        ff.fused_forward(_words(rng, (8, 2048), dev), _words(rng, (2, 8, 2048), dev),
+                         bank["b1"], bank["w2"], bank["b2"], slots, block_b=8)

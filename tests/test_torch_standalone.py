@@ -1,0 +1,91 @@
+"""The port stands alone: no module of ``repro_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package; entry points refuse to
+fall back to the CPU when CUDA is absent; the chip smoke script fails
+without a card or outside the repo; every kernel source is wired to its
+ctypes signature."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import bank as tbank
+from repro_torch.core import executor as texecutor
+from repro_torch.kernels import _build
+from repro_torch.launch import packetpath
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: pathlib.Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_imports_neither_jax_nor_reference(path):
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    rng = np.random.default_rng(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        texecutor.init_bank(rng, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        texecutor.init_params(rng)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbank.from_jax_bank({"b1": np.zeros((2, 4), np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        texecutor.pack_real_weights(np.ones((2, 32)), np.zeros(2),
+                                    np.zeros((1, 2)), np.zeros(1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        packetpath.main(["--packets", "16"])
+    # an explicit CPU request is honoured
+    assert texecutor.init_bank(rng, 2, device="cpu")["w1p"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(no_cuda, tmp_path, alone):
+    """Exits non-zero and prints no result: here for want of CUDA, and in a
+    directory that holds chip_smoke.py and nothing else of the repo."""
+    script = ROOT / "chip_smoke.py"
+    cwd = ROOT
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_every_kernel_source_has_a_signature():
+    sources = {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert sources == set(_build.SIGNATURES)
+    for name in sources:
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR
+        assert path == _build.library_path(name)  # stable across calls
+        symbol, _ = _build.SIGNATURES[name]
+        assert f'extern "C" int {symbol}(' in (_build.CSRC / f"{name}.cu").read_text()
