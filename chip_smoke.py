@@ -8,32 +8,68 @@ Phases, in order; any failure raises and exits non-zero:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for ``sm_90a``, one compiler process per source, all at once;
-3. holds each kernel against its plain PyTorch version at the paper's full
-   H32 width (d = 8192, H = 32, C = 1) with K in {2, 16} slots and B = 8192
-   packets: the fused kernel in gather mode with ``meta_words=16`` and
-   actions, in gather mode with ``meta_words=0``, and in contiguous mode;
-   ``xnor_matmul`` at B in {1, 8192}.  Integers and actions must be equal,
-   scores within atol 1e-5 (layer 2 sums in another order);
-4. drives the port's main path through its entry points, each part with the
-   launch counts set to 0 just before it and read just after:
+3. holds each kernel against its plain PyTorch version at full width:
+   * the fused kernel at the paper's H32 width (d = 8192, H = 32, C = 1)
+     with K in {2, 16} slots and B = 8192 packets, in gather mode with
+     ``meta_words=16`` and actions, in gather mode with ``meta_words=0``,
+     and in contiguous mode; ``xnor_matmul`` at B in {1, 8192}.  Integers
+     and actions must be equal, scores within atol 1e-5 (layer 2 sums in
+     another order);
+   * ``banked_xnor_layer1`` at H32, B = 8192, ``block_b`` = 256, on the
+     (2K = 32)-slot stack of two K = 16 banks, steered with ``flip_slots``
+     by a device scalar ``active`` in {0, 1}: bit-equal to its plain
+     version and to the kernel on the single half;
+   * ``banked_matmul`` at the banked LM config's width (smollm_360m:
+     d_model 960, 2 bank slots), x (8192, 960) by W (2, 960, 960) per half,
+     double-banked to 4 slots, ``block_b`` = 128, in f32 and bf16: equal to
+     the kernel on the single half bit for bit, and within a tolerance
+     derived from the reduction length n = D + 1 and u = 2^-24 (f32:
+     |err| <= 2 lambda sqrt(n) u (|x| |W| + |b|) with lambda = 10, the
+     probabilistic bound on two f32 sums of n terms, which fails with
+     probability at most 2 n exp(-lambda^2 / 2) per element; a control
+     shows that the plain version on inputs rounded to TF32 breaks it;
+     bf16: one bf16 ulp of the result plus the worst-case f32 bound
+     2 gamma(n) (|x| |W| + |b|), gamma(n) = n u / (1 - n u), where
+     cancellation makes the f32 sums differ by more than an ulp);
+   * ``double_buffered_forward`` (a case of the fused kernel) at H32,
+     K = 16 + 16, gather mode, ``meta_words=16`` with actions: equal to
+     ``fused_forward`` on the front or back bank bit for bit;
+4. drives the port's main paths through their entry points, each part with
+   the launch counts set to 0 just before it and read just after:
    ``repro_torch.launch.packetpath`` on an 8192-packet K = 2 boundary trace
    (must give wrong_slot = wrong_verdict = 0), ``packet_step`` with the
    fused, grouped and grouped_staged strategies on K = 2 and K = 16 random
    access traces (slots, verdicts and actions equal to the take strategy's),
-   ``inference_only`` on 8192 payloads and the single-packet control-plane
-   replay.  Every kernel must have been launched in its part;
-5. profiles one fused ``packet_step`` (K = 2, B = 8192): device time by
-   operator and the device's idle share.
+   ``inference_only`` on 8192 payloads, the single-packet control-plane
+   replay; the kernel-level double bank (``ops.banked_matmul``,
+   ``banked_xnor_layer1`` and ``double_buffered_forward``, each called, the
+   one scalar flipped, and called again: equal to the single halves); the
+   data plane (``DataplaneRuntime`` playing ``emergency_phases(16,
+   scale=16)`` from seed 0 with 4 queues, batch 2048, ``block_b`` 256,
+   ring capacity 16384, the fused strategy, audit and record on, once with
+   the double-buffered flip commit and once with the re-stage commit: zero
+   wrong verdicts, conservation, identical completion streams); and a
+   ``SlotCache`` churn of 32 models over the 16 slots between the same
+   bursts (flip and re-stage give identical streams).  Every kernel must
+   have been launched in its part;
+5. profiles one fused ``packet_step`` (K = 2, B = 8192) and one data-plane
+   tick at the flash-crowd size (the scenario's runtime, batch 2048 per
+   queue, fed one 8192-packet burst per tick): device time by operator and
+   the device's idle share, and for the tick the host time of the arrival
+   edge apart from the tick's and the packets served per tick.
 
-The second-to-last line of output is one JSON object listing every kernel
-with its launches, error, time, plain-version time and bound; the last line
-is ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is its device time,
-from CUDA events around calls queued behind a busy-wait kernel; ``call_ms``
-(the wrapper call, host overhead included) and ``plain_ms`` are CUDA-event
-medians over back-to-back calls.
-Inputs stay in the 50 MB L2 cache between calls.  A ``design_ceilings``
-line before it gives the POPC-issue ceiling of the kernels' design,
-computed from the row count and the card's clock, not measured.
+Lines printed before the last: the data plane's kpps per phase, the swap
+epoch's ``apply_us`` committed by flip and by re-stage, the profiles, and
+one JSON object listing every kernel with its launches (summed over the
+parts of phase 4 that ran it), error, time, plain-version time, bound and
+library time.  The last line is ``{"ok": true, "device": {...}}``.
+A kernel's ``ms`` is its device time, from CUDA events around calls queued
+behind a busy-wait kernel; ``library_ms`` is taken the same way;
+``call_ms`` (the wrapper call, host overhead included) and ``plain_ms`` are
+CUDA-event medians over back-to-back calls.  Inputs stay in the 50 MB L2
+cache between calls where they fit.  A ``design_ceilings`` line gives the
+POPC-issue ceiling of the XNOR kernels' design, computed from the row count
+and the card's clock, not measured.
 """
 
 from __future__ import annotations
@@ -51,10 +87,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the peak rate of their type.
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12   # a binary dot product is an int8 MAC per bit
+BF16_TENSOR_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
 POPC_PER_CLOCK_PER_SM = 16        # compute capability 9.0 instruction throughput
 N, BLOCK_B = 8192, 256
 ATOL, RTOL = 1e-5, 1e-6
+K_DB = 16                          # slots in each half of the double bank
+LM_D, LM_SLOTS, LM_BLOCK_B = 960, 2, 128   # smollm_360m: d_model, bank_slots
+DP_QUEUES, DP_BATCH, DP_RING, DP_SCALE = 4, 2048, 16384, 16
+CHURN_MODELS = 32
+F32_UNIT_ROUNDOFF = 2.0 ** -24
+PROB_LAMBDA = 10.0                 # confidence of the probabilistic f32 bound
 
 
 def fail(msg: str) -> None:
@@ -69,8 +112,8 @@ def nvidia_smi(query: str, extra: str = "") -> str:
 
 
 def kernel_device_ms(call, iters: int = 20, repeats: int = 5) -> float:
-    """Device time per call of ``call``, which launches one kernel and no
-    other device work: the median over ``repeats`` of CUDA events around
+    """Device time per call of ``call``, which launches its kernels and no
+    host synchronisation: the median over ``repeats`` of CUDA events around
     ``iters`` calls.  A busy-wait kernel holds the stream while the host
     queues the calls, so the events see the kernels back to back and none
     of the wrapper's host time.  Where the busy-wait ended before the host
@@ -144,9 +187,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
+    from repro_torch.control import SlotCache
     from repro_torch.core import bank as bank_lib
     from repro_torch.core import executor, packet as pkt, pipeline, switching
-    from repro_torch.kernels import _build, ref
+    from repro_torch.dataplane import (DataplaneRuntime, emergency_phases,
+                                       play, render)
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import banked_matmul as bm
     from repro_torch.kernels import bnn_xnor, fused_forward as ff
     from repro_torch.launch import packetpath
 
@@ -187,9 +234,11 @@ def main() -> int:
             times.append(start.elapsed_time(end) / iters)
         return float(np.median(times))
 
-    def bound(nbytes: int, int8_ops: float, fp32_ops: float) -> tuple[float, str]:
+    def bound(nbytes: int, int8_ops: float, fp32_ops: float,
+              bf16_ops: float = 0.0) -> tuple[float, str]:
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = int8_ops / INT8_TENSOR_OPS_PER_S + fp32_ops / FP32_OPS_PER_S
+        t_ops = (int8_ops / INT8_TENSOR_OPS_PER_S + fp32_ops / FP32_OPS_PER_S
+                 + bf16_ops / BF16_TENSOR_OPS_PER_S)
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
     ceilings = []
@@ -204,6 +253,10 @@ def main() -> int:
     def nbytes(*ts) -> int:
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
+    def used_slots(block_slots) -> int:
+        """Distinct slots a slot table reads: the weights the work needs."""
+        return int(torch.unique(block_slots).numel())
+
     # -- 3. each kernel against its plain version at full width ---------------
     # Bring the clocks up from idle before the first timing.
     a = torch.randn(4096, 4096, device=dev)
@@ -211,20 +264,24 @@ def main() -> int:
     while time.perf_counter() - t0 < 1.0:
         a @ a
         torch.cuda.synchronize()
+    del a
     entries = {}
 
-    def record(key, name, source, replaces, err, run_k, run_p, b_ms, b_by):
-        """Time the kernel (device time) and its plain version (CUDA events
-        around whole calls), and keep the kernel's line entry."""
+    def record(key, name, source, replaces, err, run_k, run_p, b_ms, b_by,
+               *, call=None, library=None):
+        """Time the kernel (device time), the wrapper call, its plain
+        version and the library call, and keep the kernel's line entry."""
         ms = kernel_device_ms(run_k)
-        call_ms, plain_ms = time_ms(run_k, 20), time_ms(run_p, 3)
+        call_ms, plain_ms = time_ms(call or run_k, 20), time_ms(run_p, 3)
+        library_ms = kernel_device_ms(library) if library is not None else None
         entries[key] = {"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": 0,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                        "call_ms": call_ms}
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": library_ms, "call_ms": call_ms}
+        lib = "" if library_ms is None else f" library_ms={library_ms:.5f}"
         print(f"check {name}: max_abs_err={err:.3g} ms={ms:.5f} call_ms={call_ms:.5f} "
-              f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by})", flush=True)
+              f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}){lib}", flush=True)
 
     def packets_for(rng, k):
         payload = rng.integers(0, 2**32, (N, pkt.PAYLOAD_WORDS), dtype=np.uint32)
@@ -291,15 +348,165 @@ def main() -> int:
                "src/repro/kernels/bnn_xnor.py:79", 0.0, run_k, run_p, b_ms, b_by)
         popc_ceiling(f"xnor_matmul B={b}", b)
 
-    # -- 4. the main path, each part with the counts set to 0 around it --------
+    # The kernel-level double bank: two K = 16 banks stacked into one
+    # (2K, ...) allocation, steered by the device scalar ``active``.
+    rng = np.random.default_rng(31)
+    front = executor.init_bank(rng, K_DB, device=dev)
+    back = executor.init_bank(rng, K_DB, device=dev)
+    both = bm.stack_double_bank(front, back)
+    active = torch.zeros((), dtype=torch.int32, device=dev)
+    halves = {}  # single-half kernel results, held against the flips of phase 4
+    x_db = packets_for(rng, K_DB)
+    xw = pkt.payload_of(x_db)
+    bs_x = torch.from_numpy(rng.integers(0, K_DB, N // BLOCK_B)).to(dev, torch.int32)
+    for act_v, half in ((0, front), (1, back)):
+        active.fill_(act_v)
+        fl_x = bm.flip_slots(bs_x, active, K_DB)
+        run_k = lambda: bm.banked_xnor_layer1(xw, both["w1p"], both["b1"], fl_x, block_b=BLOCK_B)  # noqa: E731
+        run_p = lambda: bm.banked_xnor_layer1_ref(xw, both["w1p"], both["b1"], fl_x, block_b=BLOCK_B)  # noqa: E731
+        got, want = run_k(), run_p()
+        single = bm.banked_xnor_layer1(xw, half["w1p"], half["b1"], bs_x, block_b=BLOCK_B)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"banked_xnor_layer1 active={act_v}: "
+                 f"{int((got != want).sum())} pre-activations differ from the plain version")
+        if not torch.equal(got, single):
+            fail(f"banked_xnor_layer1 active={act_v}: the flip differs from the single half")
+        halves[("xnor", act_v)] = single
+    b_ms, b_by = bound(N * W * 4 + used_slots(fl_x) * (H * W + H) * 4
+                       + nbytes(fl_x) + N * H * 4, 2.0 * N * H * D, 0.0)
+    record("banked_xnor", f"banked_xnor_layer1 K={K_DB}+{K_DB}",
+           "src/repro_torch/kernels/csrc/banked_xnor_layer1.cu",
+           "src/repro/kernels/banked_matmul.py:172", 0.0, run_k, run_p, b_ms, b_by)
+    popc_ceiling(f"banked_xnor_layer1 K={K_DB}+{K_DB}", N)
+
+    gen = torch.Generator().manual_seed(41)
+    x_lm = torch.randn(N, LM_D, generator=gen)
+    w_lm = [torch.randn(LM_SLOTS, LM_D, LM_D, generator=gen) / LM_D ** 0.5
+            for _ in range(2)]
+    b_lm = [torch.randn(LM_SLOTS, LM_D, generator=gen) * 0.1 for _ in range(2)]
+    bs_mm = torch.from_numpy(rng.integers(0, LM_SLOTS, N // LM_BLOCK_B)).to(dev, torch.int32)
+    gamma = (LM_D + 1) * F32_UNIT_ROUNDOFF / (1 - (LM_D + 1) * F32_UNIT_ROUNDOFF)
+    # f32: the probabilistic bound on a sum of n = D + 1 rounded terms,
+    # lambda sqrt(n) u sum|terms|, which fails with probability at most
+    # 2 n exp(-lambda^2 / 2) per element (about 4e-19 at lambda = 10).  It
+    # sits below the worst-case 2 gamma(n) bound; inputs rounded to TF32
+    # (10 mantissa bits) break it, which the TF32 control below shows.
+    gamma_prob = PROB_LAMBDA * (LM_D + 1) ** 0.5 * F32_UNIT_ROUNDOFF
+
+    def tf32(t):
+        """``t`` with its mantissa rounded to TF32's 10 bits (to nearest)."""
+        return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    mm_inputs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).removeprefix("torch.")
+        xm = x_lm.to(dev, dtype)
+        wh = [t.to(dev, dtype) for t in w_lm]
+        bh = [t.to(dev, dtype) for t in b_lm]
+        w2, b2 = bm.stack_double_bank(*wh), bm.stack_double_bank(*bh)
+        mm_inputs[tname] = (xm, w2, b2)
+        for act_v in (0, 1):
+            active.fill_(act_v)
+            fl_mm = bm.flip_slots(bs_mm, active, LM_SLOTS)
+            run_k = lambda: bm.banked_matmul(xm, w2, b2, fl_mm, block_b=LM_BLOCK_B)  # noqa: E731
+            run_p = lambda: bm.banked_matmul_ref(xm, w2, b2, fl_mm, block_b=LM_BLOCK_B)  # noqa: E731
+            got, want = run_k(), run_p()
+            single = bm.banked_matmul(xm, wh[act_v], bh[act_v], bs_mm, block_b=LM_BLOCK_B)
+            absref = bm.banked_matmul_ref(xm.float().abs(), w2.float().abs(),
+                                          b2.float().abs(), fl_mm, block_b=LM_BLOCK_B)
+            torch.cuda.synchronize()
+            if not torch.equal(got, single):
+                fail(f"banked_matmul {tname} active={act_v}: the flip differs "
+                     "from the single half")
+            diff = (got.float() - want.float()).abs()
+            beyond_ulp = 0
+            if dtype == torch.bfloat16:
+                mag = torch.maximum(got.float().abs(), want.float().abs())
+                ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126))) - 7)
+                beyond_ulp = int((diff > ulp).sum())
+                allowed = 2 * gamma * absref * 1.01 + ulp  # 1.01: absref's own rounding
+            else:
+                allowed = 2 * gamma_prob * absref * 1.01
+                if act_v == 0:
+                    # The control: the plain version on inputs rounded to
+                    # TF32 must break the f32 limit, or the limit is too
+                    # loose to tell a TF32 kernel from an f32 one.
+                    ctl = bm.banked_matmul_ref(tf32(xm), tf32(w2), b2, fl_mm,
+                                               block_b=LM_BLOCK_B)
+                    ctl_diff = (ctl - want).abs()
+                    ctl_beyond = int((ctl_diff > allowed).sum())
+                    print(f"banked_matmul f32 TF32 control: max_abs_err="
+                          f"{float(ctl_diff.max()):.3g}, {ctl_beyond} of {ctl.numel()} "
+                          "elements beyond the f32 limit", flush=True)
+                    if not ctl_beyond:
+                        fail("banked_matmul f32: TF32-rounded inputs pass the f32 limit")
+            if bool((diff > allowed).any()):
+                fail(f"banked_matmul {tname} active={act_v}: {int((diff > allowed).sum())} "
+                     f"elements beyond the tolerance (max err {float(diff.max())})")
+            halves[("mm", tname, act_v)] = single
+            print(f"banked_matmul {tname} active={act_v}: max_abs_err={float(diff.max()):.3g} "
+                  f"max err/tolerance={float((diff / allowed).max()):.3g} "
+                  f"elements beyond one ulp={beyond_ulp}", flush=True)
+        fl64 = fl_mm.to(torch.int64)
+        nb = N // LM_BLOCK_B
+        library = lambda: torch.bmm(xm.view(nb, LM_BLOCK_B, LM_D), w2[fl64]) + b2[fl64][:, None]  # noqa: E731
+        esz = xm.element_size()
+        mm_bytes = esz * (N * LM_D + used_slots(fl_mm) * (LM_D * LM_D + LM_D)
+                          + N * LM_D) + nbytes(fl_mm)
+        mm_ops = 2.0 * N * LM_D * LM_D
+        b_ms, b_by = (bound(mm_bytes, 0.0, mm_ops) if dtype == torch.float32
+                      else bound(mm_bytes, 0.0, 0.0, bf16_ops=mm_ops))
+        record(f"mm/{tname}", f"banked_matmul {tname} 8192x960x960 K={LM_SLOTS}+{LM_SLOTS}",
+               "src/repro_torch/kernels/csrc/banked_matmul.cu",
+               "src/repro/kernels/banked_matmul.py:106", float(diff.max()),
+               run_k, run_p, b_ms, b_by, library=library)
+
+    g_db = bank_lib.group_by_slot_padded(pkt.slot_of(x_db, K_DB), K_DB, BLOCK_B)
+    kw_db = dict(block_b=BLOCK_B, meta_words=16, with_actions=True)
+    both_args = (both["w1p"], both["b1"], both["w2"], both["b2"])
+    for act_v, half in ((0, front), (1, back)):
+        active.fill_(act_v)
+        fl_db = bm.flip_slots(g_db.block_slots, active, K_DB)
+        got = ff.double_buffered_forward(x_db, front, back, active, g_db.block_slots,
+                                         g_db.row_ids, **kw_db)
+        single = ff.fused_forward(x_db, half["w1p"], half["b1"], half["w2"], half["b2"],
+                                  g_db.block_slots, g_db.row_ids, **kw_db)
+        want = ff.fused_forward_ref(x_db, *both_args, fl_db, g_db.row_ids, **kw_db)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], single[0]) and torch.equal(got[1], single[1])):
+            fail(f"double_buffered_forward active={act_v}: differs from the single half")
+        if not torch.equal(got[1], want[1]) or not torch.allclose(
+                got[0], want[0], atol=ATOL, rtol=RTOL):
+            fail(f"double_buffered_forward active={act_v}: differs from the plain version")
+        halves[("dbf", act_v)] = single
+    run_k = lambda: ff.fused_forward(x_db, *both_args, fl_db, g_db.row_ids, **kw_db)  # noqa: E731
+    run_call = lambda: ff.double_buffered_forward(  # noqa: E731
+        x_db, front, back, active, g_db.block_slots, g_db.row_ids, **kw_db)
+    run_p = lambda: ff.fused_forward_ref(x_db, *both_args, fl_db, g_db.row_ids, **kw_db)  # noqa: E731
+    slot_bytes = (H * W + H + C * H + C) * 4
+    b_ms, b_by = bound(N * (W * 4 + 32) + used_slots(fl_db) * slot_bytes
+                       + nbytes(g_db.row_ids, fl_db) + g_db.b_pad * (C + 1) * 4,
+                       2.0 * g_db.b_pad * H * D, 2.0 * g_db.b_pad * H * C)
+    record("dbf", f"fused_forward double_buffered_forward gather/meta16/actions "
+           f"K={K_DB}+{K_DB}", fused_src, fused_tpu,
+           float((got[0] - want[0]).abs().max()), run_k, run_p, b_ms, b_by, call=run_call)
+    popc_ceiling(f"double_buffered_forward K={K_DB}+{K_DB}", g_db.b_pad)
+
+    # -- 4. the main paths, each part with the counts set to 0 around it -------
     def counted(part):
         """Run ``part`` with every launch count set to 0 just before it;
         return its result and the counts read just after."""
         ff.fused_forward.launches.clear()
         bnn_xnor.xnor_matmul.launches = 0
+        bm.banked_matmul.launches.clear()
+        bm.banked_xnor_layer1.launches = 0
         result = part()
         torch.cuda.synchronize()
-        return result, dict(ff.fused_forward.launches), bnn_xnor.xnor_matmul.launches
+        return result, {"fused": dict(ff.fused_forward.launches),
+                        "xnor": bnn_xnor.xnor_matmul.launches,
+                        "banked_matmul": dict(bm.banked_matmul.launches),
+                        "banked_xnor": bm.banked_xnor_layer1.launches}
 
     end_to_end = {}
 
@@ -312,8 +519,8 @@ def main() -> int:
                  f"wrong_verdict={res['wrong_verdict']}")
         end_to_end["packetpath_fused_K2_mpps"] = res["mpps"]
 
-    _, fused_launches, _ = counted(boundary_replay)
-    entries["gather/meta16/actions/K2"]["launches"] = fused_launches.get(
+    _, n = counted(boundary_replay)
+    entries["gather/meta16/actions/K2"]["launches"] += n["fused"].get(
         "gather/meta16/actions", 0)
 
     strategy_variant = {"fused": "gather/meta16/actions", "grouped": "gather/meta0",
@@ -328,16 +535,14 @@ def main() -> int:
         xk = pkt.to_device(p, dev)
         base = pipeline.packet_step(bank, xk, num_slots=k, strategy="take")
         for strategy, variant in strategy_variant.items():
-            res, launches, _ = counted(lambda: pipeline.packet_step(
+            res, n = counted(lambda: pipeline.packet_step(
                 bank, xk, num_slots=k, strategy=strategy))
             for field in ("slots", "verdicts", "actions"):
                 if not torch.equal(getattr(res, field), getattr(base, field)):
                     fail(f"packet_step {strategy} K={k}: {field} differ from take")
             if not torch.allclose(res.scores, base.scores, atol=ATOL, rtol=RTOL):
                 fail(f"packet_step {strategy} K={k}: scores differ from take")
-            key = f"{variant}/K{k}"
-            if key != "gather/meta16/actions/K2":
-                entries[key]["launches"] = launches.get(variant, 0)
+            entries[f"{variant}/K{k}"]["launches"] += n["fused"].get(variant, 0)
             ms = time_ms(lambda: pipeline.packet_step(
                 bank, xk, num_slots=k, strategy=strategy), 20)
             end_to_end[f"packet_step_{strategy}_K{k}_mpps"] = N / ms / 1e3
@@ -346,27 +551,190 @@ def main() -> int:
 
     bank, x = banks[2]
     slot0, slot1 = bank_lib.select_slot(bank, 0), bank_lib.select_slot(bank, 1)
-    y, _, n = counted(lambda: pipeline.inference_only(slot0, pkt.payload_of(x)))
+    y, n = counted(lambda: pipeline.inference_only(slot0, pkt.payload_of(x)))
     want = executor.forward(slot0, pkt.payload_of(x), backend="ref")
     if not torch.allclose(y, want, atol=ATOL, rtol=RTOL):
         fail("inference_only differs from its plain version")
-    entries[f"xnor/B{N}"]["launches"] = n
+    entries[f"xnor/B{N}"]["launches"] += n["xnor"]
 
     trace = switching.boundary_trace(256, pkt.payload_of(x)[:256].cpu().numpy().view(np.uint32))
-    cp, _, n = counted(lambda: switching.control_plane_replay(slot0, slot1, trace))
+    cp, n = counted(lambda: switching.control_plane_replay(slot0, slot1, trace))
     if not 0 <= cp.wrong_verdict_packets <= cp.wrong_model_packets <= 128:
         fail(f"control-plane replay counts out of range: {cp}")
-    entries["xnor/B1"]["launches"] = n
+    entries["xnor/B1"]["launches"] += n["xnor"]
     end_to_end["control_plane_switch_latency_us"] = cp.switch_latency_us
+
+    # The kernel-level double bank: each kernel called, the one scalar
+    # flipped (the commit), and called again.
+    def double_bank_calls():
+        outs = []
+        for act_v in (0, 1):
+            active.fill_(act_v)
+            outs.append((act_v, bm.banked_xnor_layer1(
+                xw, both["w1p"], both["b1"], bm.flip_slots(bs_x, active, K_DB),
+                block_b=BLOCK_B), {
+                tname: ops.banked_matmul(xm, w2, b2, bm.flip_slots(bs_mm, active, LM_SLOTS),
+                                         block_b=LM_BLOCK_B)
+                for tname, (xm, w2, b2) in mm_inputs.items()},
+                ff.double_buffered_forward(x_db, front, back, active, g_db.block_slots,
+                                           g_db.row_ids, **kw_db)))
+        return outs
+
+    outs, n = counted(double_bank_calls)
+    for act_v, y_x, y_mm, y_db in outs:
+        if not torch.equal(y_x, halves[("xnor", act_v)]):
+            fail(f"double bank: banked_xnor_layer1 after the flip to {act_v} differs")
+        for tname, y in y_mm.items():
+            if not torch.equal(y, halves[("mm", tname, act_v)]):
+                fail(f"double bank: banked_matmul {tname} after the flip to {act_v} differs")
+        if not all(torch.equal(u, v) for u, v in zip(y_db, halves[("dbf", act_v)])):
+            fail(f"double bank: double_buffered_forward after the flip to {act_v} differs")
+    entries["banked_xnor"]["launches"] += n["banked_xnor"]
+    for tname in mm_inputs:
+        entries[f"mm/{tname}"]["launches"] += n["banked_matmul"].get(tname, 0)
+    entries["dbf"]["launches"] += n["fused"].get("gather/meta16/actions", 0)
+
+    # The data plane on the emergency scenario, committed by flip and by
+    # re-stage.  Replacement weights come from the default delivery.
+    scenario = render(emergency_phases(K_DB, scale=DP_SCALE), num_slots=K_DB, seed=0)
+
+    def runtime(double_buffer, **kw):
+        kw = dict(dict(num_queues=DP_QUEUES, batch=DP_BATCH, block_b=BLOCK_B,
+                       ring_capacity=DP_RING, strategy="fused", audit=True,
+                       record=True, double_buffer=double_buffer), **kw)
+        return DataplaneRuntime(front, **kw)
+
+    dataplane = {}
+    for double_buffer in (True, False):
+        mode = "flip" if double_buffer else "restage"
+
+        def run():
+            rt = runtime(double_buffer)
+            return rt, play(rt, scenario)
+
+        (rt, reports), n = counted(run)
+        aud = rt.audit_conservation()
+        if not aud["ok"] or aud["wrong_verdict"]:
+            fail(f"data plane ({mode}): conservation {aud['ok']}, "
+                 f"wrong_verdict {aud['wrong_verdict']}")
+        fused_n = n["fused"].get("gather/meta16/actions", 0)
+        if fused_n < 1:
+            fail(f"data plane ({mode}): the fused kernel was not launched")
+        swaps = [e for e in rt.control.command_log()
+                 if any(c["cmd"] == "swap_slot" for c in e["commands"])]
+        if len(swaps) != 1 or swaps[0]["error"]:
+            fail(f"data plane ({mode}): expected one committed swap epoch, got {swaps}")
+        flips = rt._bankbuf.flips if rt._bankbuf is not None else 0
+        if double_buffer and flips != 1:
+            fail(f"data plane (flip): {flips} flips for one swap epoch")
+        dataplane[mode] = {
+            "streams": (rt.completed_seq, rt.completed_verdicts, rt.completed_slots),
+            "kpps": {r["phase"]: r["kpps"] for r in reports},
+            "swap_apply_us": swaps[0]["apply_us"],
+            "totals": aud["totals"], "fused_launches": fused_n, "flips": flips}
+        print(f"dataplane {mode}: kpps per phase "
+              + " ".join(f"{r['phase']}={r['kpps']:.1f}" for r in reports)
+              + f"; swap epoch apply_us={swaps[0]['apply_us']:.1f}; "
+              f"fused launches={fused_n}; totals={aud['totals']}", flush=True)
+    if dataplane["flip"]["streams"] != dataplane["restage"]["streams"]:
+        fail("data plane: flip and re-stage commits give different completion streams")
+    entries[f"gather/meta16/actions/K{K_DB}"]["launches"] += \
+        dataplane["flip"]["fused_launches"]
+    end_to_end["dataplane_kpps"] = {m: d["kpps"] for m, d in dataplane.items()}
+    end_to_end["swap_epoch_apply_us"] = {
+        m: d["swap_apply_us"] for m, d in dataplane.items()}
+    print(json.dumps({"swap_epoch_apply_us": end_to_end["swap_epoch_apply_us"]}))
+
+    # SlotCache churn: 32 models over the 16 slots, cache operations from a
+    # fixed seed between the scenario's bursts.
+    model_rng = np.random.default_rng(8)
+    models = [executor.init_params(model_rng, device="cpu") for _ in range(CHURN_MODELS)]
+    bursts = [b for phase in scenario.bursts for b in phase]
+
+    def churn(double_buffer):
+        rt = runtime(double_buffer)
+        cache = SlotCache(rt)
+        names = [f"m{i}" for i in range(CHURN_MODELS)]
+        for name, params in zip(names, models):
+            cache.register(name, params)
+        op_rng = np.random.default_rng(9)
+        pinned = None
+        for burst in bursts:
+            for _ in range(2):
+                op = op_rng.choice(["ensure", "ensure", "prefetch", "pin"])
+                m = names[op_rng.integers(CHURN_MODELS)]
+                if op == "ensure":
+                    # At most one model is pinned, so a miss always finds a
+                    # victim: a CacheError here is a fault and fails the run.
+                    cache.ensure(m)
+                elif op == "prefetch":
+                    cache.prefetch(m)
+                elif pinned == m:
+                    cache.unpin(m)
+                    pinned = None
+                elif pinned is None and cache.is_resident(m):
+                    cache.pin(m)
+                    pinned = m
+            rt.dispatch(burst)
+            rt.tick()
+        rt.drain()
+        return rt, cache
+
+    churned = {}
+    for double_buffer in (True, False):
+        (rt, cache), n = counted(lambda: churn(double_buffer))
+        aud = rt.audit_conservation()
+        if not aud["ok"] or aud["wrong_verdict"]:
+            fail(f"slot-cache churn (double_buffer={double_buffer}): conservation "
+                 f"{aud['ok']}, wrong_verdict {aud['wrong_verdict']}")
+        if n["fused"].get("gather/meta16/actions", 0) < 1:
+            fail("slot-cache churn: the fused kernel was not launched")
+        stats = cache.stats()
+        print(f"slotcache churn double_buffer={double_buffer}: {stats}", flush=True)
+        stats.pop("prefetch_hits")  # shadow staging exists only with a double buffer
+        churned[double_buffer] = (rt.completed_seq, rt.completed_verdicts,
+                                  rt.completed_slots, stats,
+                                  [cache.model_at(i) for i in range(K_DB)])
+        # Each miss fills a slot and there are K_DB slots, so every miss
+        # past the first K_DB must have evicted a model.
+        if stats["evictions"] < max(1, stats["misses"] - K_DB):
+            fail(f"slot-cache churn: {stats['evictions']} evictions for "
+                 f"{stats['misses']} misses over {K_DB} slots")
+        if stats["resident"] > K_DB:
+            fail(f"slot-cache churn: {stats['resident']} models resident in {K_DB} slots")
+    if churned[True] != churned[False]:
+        fail("slot-cache churn: flip and re-stage commits differ")
 
     for e in entries.values():
         if e["launches"] < 1:
             fail(f"{e['name']} was not launched on the main path")
 
-    # -- 5. where the time of one fused packet_step goes (K = 2, B = 8192) ----
+    # -- 5. where the time goes -----------------------------------------------
     bank, x = banks[2]
     print(json.dumps({"profile": profile_step(
         lambda: pipeline.packet_step(bank, x, num_slots=2, strategy="fused"))}))
+    # The scenario's own runtime (batch DP_BATCH per queue), fed one
+    # flash-crowd burst per tick as the scenario's second phase feeds it.
+    rt = runtime(True, audit=False, record=False)
+    crowd_burst = scenario.bursts[1][0]
+    tick_profile = profile_step(lambda: (rt.dispatch(crowd_burst), rt.tick()))
+    tick_profile["packets_offered_per_tick"] = int(crowd_burst.shape[0])
+    tick_profile["batch_per_queue"] = DP_BATCH
+    # The host's share, which the profiler does not see: the arrival edge
+    # (RSS hash, ring pushes) apart from the tick (pop, pad, copy, launch,
+    # retire), each on the host clock with the device drained.
+    split, served = np.zeros(2), 0
+    for _ in range(10):
+        t0 = time.perf_counter()
+        rt.dispatch(crowd_burst)
+        t1 = time.perf_counter()
+        served += rt.tick()
+        torch.cuda.synchronize()
+        split += (t1 - t0, time.perf_counter() - t1)
+    tick_profile["dispatch_ms"], tick_profile["tick_ms"] = (split / 10 * 1e3).tolist()
+    tick_profile["packets_served_per_tick"] = served / 10
+    print(json.dumps({"dataplane_tick_profile": tick_profile}))
+    end_to_end["dataplane_tick_device_idle_share"] = tick_profile["device_idle_share"]
     print(json.dumps({"end_to_end": end_to_end}))
     print(json.dumps({"design_ceilings": ceilings}))
     print(json.dumps({"kernels": list(entries.values())}))

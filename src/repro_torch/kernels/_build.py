@@ -48,6 +48,17 @@ SIGNATURES = {
         _I, _I,            # x row stride, w row stride
         _P,                # stream
     ]),
+    "banked_xnor_layer1": ("banked_xnor_layer1_launch", [
+        _P, _P, _P, _P, _P,  # x, w1, b1, block_slots, out
+        _I, _I, _I,          # n_blocks, block_b, x row stride
+        _I, _I, _I,          # W, H, num_slots
+        _P,                  # stream
+    ]),
+    "banked_matmul": ("banked_matmul_launch", [
+        _P, _P, _P, _P, _P,  # x, w, b, block_slots, out
+        _I, _I, _I, _I, _I,  # n_blocks, block_b, D, H, num_slots
+        _I, _P,              # dtype (0 float, 1 bf16), stream
+    ]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

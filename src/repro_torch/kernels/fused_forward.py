@@ -34,6 +34,7 @@ import collections
 import torch
 
 from . import _build
+from .banked_matmul import flip_slots, stack_double_bank
 from .bnn_xnor import cuda_args
 from .ref import banked_xnor_forward_ref, expand_block_slots
 
@@ -163,6 +164,29 @@ def fused_forward(
 
 
 fused_forward.launches = collections.Counter()
+
+
+def double_buffered_forward(
+    x: torch.Tensor,
+    front: dict,                # bank A: w1p/b1/w2/b2 (K, ...) leaves
+    back: dict,                 # bank B, same structure
+    active,                     # 0/1, an int or a 0-d device tensor
+    block_slots: torch.Tensor,  # (n_blocks,) slot ids in [0, K)
+    row_ids: torch.Tensor | None = None,
+    **kwargs,
+):
+    """``fused_forward`` over a double-buffered bank: the two copies are
+    concatenated on the slot axis and the slot table is offset into the
+    ``active`` half, so a SwapSlot commit is the change of one scalar.
+    ``active`` is not read back to the host.  The concatenation copies
+    both banks on every call; a caller that keeps the ``(2K, ...)`` stack
+    calls ``fused_forward`` with ``flip_slots`` and moves no weights.
+    Accepts every ``fused_forward`` keyword."""
+    both = stack_double_bank(front, back)
+    k = front["b1"].shape[0]
+    return fused_forward(
+        x, both["w1p"], both["b1"], both["w2"], both["b2"],
+        flip_slots(block_slots, active, k), row_ids, **kwargs)
 
 
 def fused_forward_qmajor(

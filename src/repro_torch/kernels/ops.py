@@ -1,8 +1,9 @@
 """Public wrappers over the Hopper kernels, with plain-PyTorch backends.
 
 Backend selection:
-  * ``cuda`` — the hand-written kernel (``bnn_xnor``, ``fused_forward``);
-               given CPU tensors, those wrappers run their plain version.
+  * ``cuda`` — the hand-written kernel (``bnn_xnor``, ``fused_forward``,
+               ``banked_matmul``); given CPU tensors, those wrappers run
+               their plain version.
   * ``ref``  — plain PyTorch (the oracle; any device).
   * ``mxu``  — unpack bits to +-1 floats and contract with a matrix
                product instead of popcount (the reference's dense path).
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from . import banked_matmul as _banked
 from . import bnn_xnor as _bnn_xnor
 from . import fused_forward as _fused
 from . import ref as _ref
@@ -114,3 +116,12 @@ def packet_forward_fused(bank, packets, block_slots, row_ids, *,
         block_slots, row_ids, block_b=block_b, meta_words=meta_words,
         with_actions=True)
     return scores, actions[:, 0]
+
+
+def banked_matmul(x, w, b, block_slots, *, block_b: int = 128,
+                  backend: str = "auto"):
+    """Grouped slot-selected float matmul (adapter/head banks): each
+    ``block_b`` block of rows runs under its slot ``block_slots[i]``."""
+    fn = (_banked.banked_matmul_ref if resolve(backend, x) == "ref"
+          else _banked.banked_matmul)
+    return fn(x, w, b, block_slots, block_b=block_b)

@@ -7,7 +7,8 @@ GPU machine with:
 
 Shapes cover ragged widths (W not a multiple of 4, H below and above 32
 lanes, several outputs C), packet rows whose stride is not a multiple of
-16 bytes, and strided payload views of the packet rows.
+16 bytes, strided payload views of the packet rows, and for the banked
+kernels ragged blocks, D and H, out-of-range slot ids and both dtypes.
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.core import bank as tbank
+from repro_torch.kernels import banked_matmul as bm
 from repro_torch.kernels import bnn_xnor, fused_forward as ff, ref
 
 pytestmark = pytest.mark.cuda
@@ -96,3 +98,55 @@ def test_kernels_reject_what_they_cannot_take(dev):
     with pytest.raises(RuntimeError, match="shared memory"):
         ff.fused_forward(_words(rng, (8, 2048), dev), _words(rng, (2, 8, 2048), dev),
                          bank["b1"], bank["w2"], bank["b2"], slots, block_b=8)
+
+
+@pytest.mark.parametrize("b,bb,h,w,k", [
+    (64, 32, 32, 256, 4), (90, 45, 7, 9, 3), (40, 40, 1, 64, 2), (8192, 256, 32, 256, 32),
+])
+def test_banked_xnor_layer1_matches_plain(dev, b, bb, h, w, k):
+    rng = np.random.default_rng(b + h + w)
+    x = _words(rng, (b, w + 5), dev)[:, 5:]  # rows with a stride of w + 5 words
+    w1 = _words(rng, (k, h, w), dev)
+    b1 = torch.from_numpy(rng.normal(size=(k, h)).astype(np.float32)).to(dev)
+    slots = torch.from_numpy(rng.integers(-1, k + 1, b // bb)).to(dev)  # clamped
+    before = bm.banked_xnor_layer1.launches
+    got = bm.banked_xnor_layer1(x, w1, b1, slots, block_b=bb)
+    want = bm.banked_xnor_layer1_ref(x, w1, b1, slots, block_b=bb)
+    torch.cuda.synchronize()
+    assert bm.banked_xnor_layer1.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,bb,d,h,k", [
+    (64, 16, 16, 8, 3), (120, 40, 37, 70, 2), (256, 128, 960, 960, 4), (33, 33, 1, 5, 1),
+])
+def test_banked_matmul_matches_plain(dev, dtype, b, bb, d, h, k):
+    rng = np.random.default_rng(b + d + h)
+    x, w, bias = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev, dtype)
+                  for s in ((b, d), (k, d, h), (k, h)))
+    slots = torch.from_numpy(rng.integers(-1, k + 1, b // bb)).to(dev)  # clamped
+    before = sum(bm.banked_matmul.launches.values())
+    got = bm.banked_matmul(x, w, bias, slots, block_b=bb)
+    want = bm.banked_matmul_ref(x, w, bias, slots, block_b=bb)
+    torch.cuda.synchronize()
+    assert sum(bm.banked_matmul.launches.values()) == before + 1
+    assert got.dtype == dtype
+    # f32: another summation order over d terms; bf16: one rounding of that
+    tol = dict(atol=1e-2, rtol=1e-2) if dtype == torch.bfloat16 else dict(atol=2e-3, rtol=1e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_banked_kernels_reject_what_they_cannot_take(dev):
+    rng = np.random.default_rng(1)
+    slots = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="hidden"):
+        bm.banked_xnor_layer1(_words(rng, (8, 8), dev), _words(rng, (2, 33, 8), dev),
+                              torch.zeros(2, 33, device=dev), slots, block_b=8)
+    x = torch.zeros(8, 4, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        bm.banked_matmul(x, torch.zeros(2, 4, 3, device=dev, dtype=torch.float16),
+                         torch.zeros(2, 3, device=dev), slots, block_b=8)
+    with pytest.raises(ValueError, match="one device"):
+        bm.banked_matmul(x, torch.zeros(2, 4, 3), torch.zeros(2, 3, device=dev),
+                         slots, block_b=8)
