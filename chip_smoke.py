@@ -7,21 +7,27 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` for ``sm_90a``, one compiler process per source, all at once;
+   with ``nvcc`` for ``sm_90a``, one compiler process per source, all at once,
+   with the binary-MMA rate probe ``benchmarks_torch/bmma_rate.cu`` beside
+   them, and runs the probe: the measured ``b1.and.popc`` rate is the peak
+   at which every bound prices a binary dot product (the data sheet gives
+   none for this card);
 3. holds each kernel against its plain PyTorch version at full width:
    * the fused kernel at the paper's H32 width (d = 8192, H = 32, C = 1)
      with K in {2, 16} slots and B = 8192 packets, in gather mode with
      ``meta_words=16`` and actions, in gather mode with ``meta_words=0``,
-     and in contiguous mode; ``xnor_matmul`` at B in {1, 8192}.  Integers
-     and actions must be equal, scores within atol 1e-5 (layer 2 sums in
-     another order);
+     and in contiguous mode, and at the data plane's shape (gather,
+     ``meta_words=16`` with actions, K = 16, B = 2048, ``block_b`` 256);
+     ``xnor_matmul`` at B in {1, 8192}.  Integers and actions must be
+     equal, scores within atol 1e-5 (layer 2 sums in another order);
    * ``banked_xnor_layer1`` at H32, B = 8192, ``block_b`` = 256, on the
      (2K = 32)-slot stack of two K = 16 banks, steered with ``flip_slots``
      by a device scalar ``active`` in {0, 1}: bit-equal to its plain
      version and to the kernel on the single half;
    * ``banked_matmul`` at the banked LM config's width (smollm_360m:
      d_model 960, 2 bank slots), x (8192, 960) by W (2, 960, 960) per half,
-     double-banked to 4 slots, ``block_b`` = 128, in f32 and bf16: equal to
+     double-banked to 4 slots, ``block_b`` = 128, in f32 (``f32/fma``) and
+     bf16 (``bf16/wgmma``; the line names the variant that ran): equal to
      the kernel on the single half bit for bit, and within a tolerance
      derived from the reduction length n = D + 1 and u = 2^-24 (f32:
      |err| <= 2 lambda sqrt(n) u (|x| |W| + |b|) with lambda = 10, the
@@ -51,18 +57,22 @@ Phases, in order; any failure raises and exits non-zero:
    wrong verdicts, conservation, identical completion streams); and a
    ``SlotCache`` churn of 32 models over the 16 slots between the same
    bursts (flip and re-stage give identical streams).  Every kernel must
-   have been launched in its part;
+   have been launched in its part, and the LM-width bf16 ``banked_matmul``
+   through the ``bf16/wgmma`` kernel; the data plane's fused launches
+   count under the B = 2048 case;
 5. profiles one fused ``packet_step`` (K = 2, B = 8192) and one data-plane
    tick at the flash-crowd size (the scenario's runtime, batch 2048 per
    queue, fed one 8192-packet burst per tick): device time by operator and
    the device's idle share, and for the tick the host time of the arrival
    edge apart from the tick's and the packets served per tick.
 
-Lines printed before the last: the data plane's kpps per phase, the swap
+Lines printed before the last: the probe's binary-MMA rates (one JSON
+object, ``binary_mma_rates``), the data plane's kpps per phase, the swap
 epoch's ``apply_us`` committed by flip and by re-stage, the profiles, and
 one JSON object listing every kernel with its launches (summed over the
 parts of phase 4 that ran it), error, time, plain-version time, bound and
-library time.  The last line is ``{"ok": true, "device": {...}}``.
+library time (and, for ``banked_matmul``, its ``variant``).  The last
+line is ``{"ok": true, "device": {...}}``.
 A kernel's ``ms`` is its device time, from CUDA events around calls queued
 behind a busy-wait kernel; ``library_ms`` is taken the same way;
 ``call_ms`` (the wrapper call, host overhead included) and ``plain_ms`` are
@@ -84,9 +94,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
-# the peak rate of their type.
+# the peak rate of their type.  Binary dot products have no published rate:
+# they are priced at the b1 MMA rate the probe measures in the same run.
 HBM_BYTES_PER_S = 3.35e12
-INT8_TENSOR_OPS_PER_S = 1979e12   # a binary dot product is an int8 MAC per bit
 BF16_TENSOR_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
 POPC_PER_CLOCK_PER_SM = 16        # compute capability 9.0 instruction throughput
@@ -95,6 +105,7 @@ ATOL, RTOL = 1e-5, 1e-6
 K_DB = 16                          # slots in each half of the double bank
 LM_D, LM_SLOTS, LM_BLOCK_B = 960, 2, 128   # smollm_360m: d_model, bank_slots
 DP_QUEUES, DP_BATCH, DP_RING, DP_SCALE = 4, 2048, 16384, 16
+MM_VARIANT = {"float32": "f32/fma", "bfloat16": "bf16/wgmma"}  # at the LM width
 CHURN_MODELS = 32
 F32_UNIT_ROUNDOFF = 2.0 ** -24
 PROB_LAMBDA = 10.0                 # confidence of the probabilistic f32 bound
@@ -210,7 +221,18 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    probe = os.path.join(ROOT, "build", "bmma_rate", "bmma_rate")
+    os.makedirs(os.path.dirname(probe), exist_ok=True)
+    probe_nvcc = subprocess.Popen(
+        [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+         "-o", probe, os.path.join(ROOT, "benchmarks_torch", "bmma_rate.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        logs = _build.build_all()
+    finally:
+        probe_log, _ = probe_nvcc.communicate()
+    if probe_nvcc.returncode:
+        fail(f"nvcc failed for bmma_rate.cu:\n{probe_log}")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -234,10 +256,25 @@ def main() -> int:
             times.append(start.elapsed_time(end) / iters)
         return float(np.median(times))
 
-    def bound(nbytes: int, int8_ops: float, fp32_ops: float,
+    # Bring the clocks up from idle before the probe and the first timing.
+    a = torch.randn(4096, 4096, device=dev)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 1.0:
+        a @ a
+        torch.cuda.synchronize()
+    del a
+    rates = [json.loads(line) for line in subprocess.run(
+        [probe], capture_output=True, text=True, check=True, timeout=120).stdout.splitlines()]
+    print(json.dumps({"binary_mma_rates": rates}), flush=True)
+    b1 = [r for r in rates if r["family"].startswith("b1.and.popc")]
+    if len(b1) != 1 or b1[0]["err"] != "no error" or not b1[0]["bit_macs_per_s"] > 0:
+        fail(f"the b1 MMA rate probe gave {rates}")
+    b1_bit_macs_per_s = b1[0]["bit_macs_per_s"]
+
+    def bound(nbytes: int, bit_macs: float, fp32_ops: float,
               bf16_ops: float = 0.0) -> tuple[float, str]:
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = (int8_ops / INT8_TENSOR_OPS_PER_S + fp32_ops / FP32_OPS_PER_S
+        t_ops = (bit_macs / b1_bit_macs_per_s + fp32_ops / FP32_OPS_PER_S
                  + bf16_ops / BF16_TENSOR_OPS_PER_S)
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -258,13 +295,6 @@ def main() -> int:
         return int(torch.unique(block_slots).numel())
 
     # -- 3. each kernel against its plain version at full width ---------------
-    # Bring the clocks up from idle before the first timing.
-    a = torch.randn(4096, 4096, device=dev)
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < 1.0:
-        a @ a
-        torch.cuda.synchronize()
-    del a
     entries = {}
 
     def record(key, name, source, replaces, err, run_k, run_p, b_ms, b_by,
@@ -283,15 +313,16 @@ def main() -> int:
         print(f"check {name}: max_abs_err={err:.3g} ms={ms:.5f} call_ms={call_ms:.5f} "
               f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}){lib}", flush=True)
 
-    def packets_for(rng, k):
-        payload = rng.integers(0, 2**32, (N, pkt.PAYLOAD_WORDS), dtype=np.uint32)
-        p = pkt.make_packets(rng.integers(0, k, N), payload)
-        p[:, pkt.CONTROL_WORD_LO] = rng.integers(0, 2, N, dtype=np.uint32)
+    def packets_for(rng, k, n=N):
+        payload = rng.integers(0, 2**32, (n, pkt.PAYLOAD_WORDS), dtype=np.uint32)
+        p = pkt.make_packets(rng.integers(0, k, n), payload)
+        p[:, pkt.CONTROL_WORD_LO] = rng.integers(0, 2, n, dtype=np.uint32)
         return pkt.to_device(p, dev)
 
     fused_src = "src/repro_torch/kernels/csrc/fused_forward.cu"
     fused_tpu = "src/repro/kernels/fused_forward.py:229"
     banks = {}
+    fused_cases = []
     for k in (2, 16):
         rng = np.random.default_rng(k)
         bank = executor.init_bank(rng, k, device=dev)
@@ -300,37 +331,42 @@ def main() -> int:
         g = bank_lib.group_by_slot_padded(pkt.slot_of(x, k), k, BLOCK_B)
         payload = pkt.payload_of(x)
         x_pad = bank_lib.scatter_padded(payload, g)
-        bank_args = (bank["w1p"], bank["b1"], bank["w2"], bank["b2"])
-        cases = [
-            ("gather/meta16/actions", x, g.row_ids, 16, True),
-            ("gather/meta0", payload, g.row_ids, 0, False),
-            ("contiguous/meta0", x_pad, None, 0, False),
+        fused_cases += [
+            (k, "", bank, g, "gather/meta16/actions", x, g.row_ids, 16, True),
+            (k, "", bank, g, "gather/meta0", payload, g.row_ids, 0, False),
+            (k, "", bank, g, "contiguous/meta0", x_pad, None, 0, False),
         ]
-        for variant, xin, rows, meta, act in cases:
-            kw = dict(block_b=BLOCK_B, meta_words=meta, with_actions=act)
-            run_k = lambda: ff.fused_forward(xin, *bank_args, g.block_slots, rows, **kw)  # noqa: E731
-            run_p = lambda: ff.fused_forward_ref(xin, *bank_args, g.block_slots, rows, **kw)  # noqa: E731
-            got, want = run_k(), run_p()
-            torch.cuda.synchronize()
-            if act:
-                if not torch.equal(got[1], want[1]):
-                    fail(f"{variant} K={k}: actions differ in "
-                         f"{int((got[1] != want[1]).sum())} rows")
-                got, want = got[0], want[0]
-            if not torch.allclose(got, want, atol=ATOL, rtol=RTOL):
-                fail(f"{variant} K={k}: scores differ by {float((got - want).abs().max())}")
-            n_rows = g.b_pad
-            # With metadata, a packet's bytes read are its payload and the
-            # one 32-byte sector holding the control word, not the whole row.
-            x_bytes = xin.shape[0] * (W * 4 + 32) if meta else nbytes(xin)
-            b_ms, b_by = bound(
-                x_bytes + nbytes(rows, g.block_slots, *bank_args)
-                + n_rows * C * 4 + (n_rows * 4 if act else 0),
-                2.0 * n_rows * H * D, 2.0 * n_rows * H * C)
-            name = f"fused_forward {variant} K={k}"
-            record(f"{variant}/K{k}", name, fused_src, fused_tpu,
-                   float((got - want).abs().max()), run_k, run_p, b_ms, b_by)
-            popc_ceiling(name, n_rows)
+    # The data plane's shape: one queue's batch of DP_BATCH packets.
+    x_dp = packets_for(np.random.default_rng(DP_BATCH), K_DB, DP_BATCH)
+    g_dp = bank_lib.group_by_slot_padded(pkt.slot_of(x_dp, K_DB), K_DB, BLOCK_B)
+    fused_cases.append((K_DB, f"/B{DP_BATCH}", banks[K_DB][0], g_dp,
+                        "gather/meta16/actions", x_dp, g_dp.row_ids, 16, True))
+    for k, shape, bank, g, variant, xin, rows, meta, act in fused_cases:
+        name = f"fused_forward {variant} K={k}" + (f" B={xin.shape[0]}" if shape else "")
+        bank_args = (bank["w1p"], bank["b1"], bank["w2"], bank["b2"])
+        kw = dict(block_b=BLOCK_B, meta_words=meta, with_actions=act)
+        run_k = lambda: ff.fused_forward(xin, *bank_args, g.block_slots, rows, **kw)  # noqa: E731
+        run_p = lambda: ff.fused_forward_ref(xin, *bank_args, g.block_slots, rows, **kw)  # noqa: E731
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        if act:
+            if not torch.equal(got[1], want[1]):
+                fail(f"{name}: actions differ in "
+                     f"{int((got[1] != want[1]).sum())} rows")
+            got, want = got[0], want[0]
+        if not torch.allclose(got, want, atol=ATOL, rtol=RTOL):
+            fail(f"{name}: scores differ by {float((got - want).abs().max())}")
+        n_rows = g.b_pad
+        # With metadata, a packet's bytes read are its payload and the
+        # one 32-byte sector holding the control word, not the whole row.
+        x_bytes = xin.shape[0] * (W * 4 + 32) if meta else nbytes(xin)
+        b_ms, b_by = bound(
+            x_bytes + nbytes(rows, g.block_slots, *bank_args)
+            + n_rows * C * 4 + (n_rows * 4 if act else 0),
+            n_rows * H * D, 2.0 * n_rows * H * C)
+        record(f"{variant}/K{k}{shape}", name, fused_src, fused_tpu,
+               float((got - want).abs().max()), run_k, run_p, b_ms, b_by)
+        popc_ceiling(name, n_rows)
 
     bank, x = banks[2]
     w = bank["w1p"][0]
@@ -342,7 +378,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             fail(f"xnor_matmul B={b}: {int((got != want).sum())} dot products differ")
-        b_ms, b_by = bound(nbytes(xin, w) + b * H * 4, 2.0 * b * H * D, 0.0)
+        b_ms, b_by = bound(nbytes(xin, w) + b * H * 4, b * H * D, 0.0)
         record(f"xnor/B{b}", f"xnor_matmul B={b}",
                "src/repro_torch/kernels/csrc/xnor_matmul.cu",
                "src/repro/kernels/bnn_xnor.py:79", 0.0, run_k, run_p, b_ms, b_by)
@@ -374,7 +410,7 @@ def main() -> int:
             fail(f"banked_xnor_layer1 active={act_v}: the flip differs from the single half")
         halves[("xnor", act_v)] = single
     b_ms, b_by = bound(N * W * 4 + used_slots(fl_x) * (H * W + H) * 4
-                       + nbytes(fl_x) + N * H * 4, 2.0 * N * H * D, 0.0)
+                       + nbytes(fl_x) + N * H * 4, N * H * D, 0.0)
     record("banked_xnor", f"banked_xnor_layer1 K={K_DB}+{K_DB}",
            "src/repro_torch/kernels/csrc/banked_xnor_layer1.cu",
            "src/repro/kernels/banked_matmul.py:172", 0.0, run_k, run_p, b_ms, b_by)
@@ -401,6 +437,8 @@ def main() -> int:
     mm_inputs = {}
     for dtype in (torch.float32, torch.bfloat16):
         tname = str(dtype).removeprefix("torch.")
+        if bm.matmul_variant(dtype, LM_D, LM_D) != MM_VARIANT[tname]:
+            fail(f"banked_matmul {tname}: the LM width would not take {MM_VARIANT[tname]}")
         xm = x_lm.to(dev, dtype)
         wh = [t.to(dev, dtype) for t in w_lm]
         bh = [t.to(dev, dtype) for t in b_lm]
@@ -461,6 +499,7 @@ def main() -> int:
                "src/repro_torch/kernels/csrc/banked_matmul.cu",
                "src/repro/kernels/banked_matmul.py:106", float(diff.max()),
                run_k, run_p, b_ms, b_by, library=library)
+        entries[f"mm/{tname}"]["variant"] = MM_VARIANT[tname]
 
     g_db = bank_lib.group_by_slot_padded(pkt.slot_of(x_db, K_DB), K_DB, BLOCK_B)
     kw_db = dict(block_b=BLOCK_B, meta_words=16, with_actions=True)
@@ -487,7 +526,7 @@ def main() -> int:
     slot_bytes = (H * W + H + C * H + C) * 4
     b_ms, b_by = bound(N * (W * 4 + 32) + used_slots(fl_db) * slot_bytes
                        + nbytes(g_db.row_ids, fl_db) + g_db.b_pad * (C + 1) * 4,
-                       2.0 * g_db.b_pad * H * D, 2.0 * g_db.b_pad * H * C)
+                       g_db.b_pad * H * D, 2.0 * g_db.b_pad * H * C)
     record("dbf", f"fused_forward double_buffered_forward gather/meta16/actions "
            f"K={K_DB}+{K_DB}", fused_src, fused_tpu,
            float((got[0] - want[0]).abs().max()), run_k, run_p, b_ms, b_by, call=run_call)
@@ -590,8 +629,11 @@ def main() -> int:
         if not all(torch.equal(u, v) for u, v in zip(y_db, halves[("dbf", act_v)])):
             fail(f"double bank: double_buffered_forward after the flip to {act_v} differs")
     entries["banked_xnor"]["launches"] += n["banked_xnor"]
+    if set(n["banked_matmul"]) != set(MM_VARIANT.values()):
+        fail(f"double bank: banked_matmul ran the variants {n['banked_matmul']}, "
+             f"not {sorted(MM_VARIANT.values())}")
     for tname in mm_inputs:
-        entries[f"mm/{tname}"]["launches"] += n["banked_matmul"].get(tname, 0)
+        entries[f"mm/{tname}"]["launches"] += n["banked_matmul"][MM_VARIANT[tname]]
     entries["dbf"]["launches"] += n["fused"].get("gather/meta16/actions", 0)
 
     # The data plane on the emergency scenario, committed by flip and by
@@ -638,7 +680,7 @@ def main() -> int:
               f"fused launches={fused_n}; totals={aud['totals']}", flush=True)
     if dataplane["flip"]["streams"] != dataplane["restage"]["streams"]:
         fail("data plane: flip and re-stage commits give different completion streams")
-    entries[f"gather/meta16/actions/K{K_DB}"]["launches"] += \
+    entries[f"gather/meta16/actions/K{K_DB}/B{DP_BATCH}"]["launches"] += \
         dataplane["flip"]["fused_launches"]
     end_to_end["dataplane_kpps"] = {m: d["kpps"] for m, d in dataplane.items()}
     end_to_end["swap_epoch_apply_us"] = {

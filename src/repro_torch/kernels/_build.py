@@ -7,12 +7,18 @@ process into ``build/kernels/`` at the root of the checkout (a directory
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o lib<name>-<hash>.so csrc/<name>.cu
 
+No library links ``-lcuda``: ``banked_matmul.cu`` encodes its TMA tensor
+maps with ``cuTensorMapEncodeTiled``, which it finds at run time through
+``cudaGetDriverEntryPointByVersion`` (``cuda.h`` is used for its types
+only).
+
 The file name carries a hash of the sources and flags, so an edited
 source is rebuilt and a stale library is never loaded.  ``build_all``
 starts every compile at once and waits for all of them.  Pointers and the
 stream are passed as ``ctypes.c_void_p``; every launch function returns
-its ``cudaError_t`` (or -1 where a row does not fit the kernel's shared
-memory) and ``launch`` raises if it is not 0.
+its ``cudaError_t`` (or a negative code of its own, such as a row that
+does not fit the kernel's shared memory or a tensor map the driver could
+not encode) and ``launch`` raises if it is not 0.
 """
 
 from __future__ import annotations
@@ -57,7 +63,7 @@ SIGNATURES = {
     "banked_matmul": ("banked_matmul_launch", [
         _P, _P, _P, _P, _P,  # x, w, b, block_slots, out
         _I, _I, _I, _I, _I,  # n_blocks, block_b, D, H, num_slots
-        _I, _P,              # dtype (0 float, 1 bf16), stream
+        _I, _P,              # variant (0 f32/fma, 1 bf16/fma, 2 bf16/wgmma), stream
     ]),
 }
 

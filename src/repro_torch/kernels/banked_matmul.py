@@ -8,14 +8,18 @@ shares one slot (``repro_torch.core.bank.group_by_slot``).
 
 * ``banked_matmul`` — grouped float matmul ``y = x @ W[s] + b[s]``,
   accumulated in f32 and written in x's dtype (f32 or bf16); the Hopper
-  kernel is ``csrc/banked_matmul.cu``.
+  kernels are in ``csrc/banked_matmul.cu``, one per variant that
+  ``matmul_variant`` picks from the shapes and dtype: ``bf16/wgmma``
+  (tensor cores fed by TMA), ``bf16/fma`` (ragged bf16 widths) and
+  ``f32/fma`` (exact f32).
 * ``banked_xnor_layer1`` — slot-selected BNN layer-1 pre-activations
   ``(float)(d - 2 popcount(x ^ w1[s])) + b1[s]``; the Hopper kernel is
   ``csrc/banked_xnor_layer1.cu``.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version (``banked_matmul_ref``, ``banked_xnor_layer1_ref``) on CPU
-tensors; ``<wrapper>.launches`` counts kernel launches.
+tensors; ``<wrapper>.launches`` counts kernel launches (``banked_matmul``
+per variant).
 
 Double-buffered bank (zero-copy commit): both bank copies live in ONE
 ``(2K, ...)`` allocation (``stack_double_bank``) and the slot table is
@@ -34,13 +38,14 @@ from .bnn_xnor import cuda_args
 from .ref import PACK, _mismatches, expand_block_slots
 
 __all__ = ["PACK", "stack_double_bank", "flip_slots", "banked_matmul",
-           "banked_matmul_ref", "banked_xnor_layer1", "banked_xnor_layer1_ref"]
+           "banked_matmul_ref", "matmul_variant", "banked_xnor_layer1",
+           "banked_xnor_layer1_ref"]
 
 # The XNOR kernel gives one lane to each hidden unit.
 MAX_HIDDEN = 32
 
-# dtype codes of banked_matmul_launch
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# variant codes of banked_matmul_launch
+_VARIANT_CODE = {"f32/fma": 0, "bf16/fma": 1, "bf16/wgmma": 2}
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +108,19 @@ def banked_matmul_ref(x, w, b, block_slots, *, block_b: int = 128):
     return y.to(x.dtype)
 
 
+def matmul_variant(dtype: torch.dtype, d: int, h: int, aligned: bool = True) -> str:
+    """The kernel ``banked_matmul`` launches for these shapes, decided
+    before launch.  The wgmma kernel's TMA loads need 16-byte row strides
+    (D and H multiples of 8 bf16 values) and 16-byte aligned bases
+    (``aligned``); other bf16 shapes take the FMA tile.  f32 always takes
+    the exact FMA kernel (TF32 tensor cores would change its results)."""
+    if dtype == torch.float32:
+        return "f32/fma"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"banked_matmul takes float32 or bfloat16, not {dtype}")
+    return "bf16/wgmma" if aligned and d % 8 == 0 and h % 8 == 0 else "bf16/fma"
+
+
 def banked_matmul(
     x: torch.Tensor,            # (B, D) f32 or bf16
     w: torch.Tensor,            # (K, D, H) same dtype
@@ -116,7 +134,8 @@ def banked_matmul(
     block_b, n_blocks = _check_matmul(x, w, b, block_slots, block_b)
     if not x.is_cuda:
         return banked_matmul_ref(x, w, b, block_slots, block_b=block_b)
-    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype or b.dtype != x.dtype:
+    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype \
+            or b.dtype != x.dtype:
         raise TypeError("x, w and b must share one dtype, float32 or bfloat16")
     dev = x.device
     if any(t.device != dev for t in (w, b, block_slots)):
@@ -127,11 +146,13 @@ def banked_matmul(
     slots = block_slots.to(torch.int32).contiguous()
     out = torch.empty((bsz, h), dtype=x.dtype, device=dev)
     if bsz and h:
+        kind = matmul_variant(x.dtype, d, h, all(
+            t.data_ptr() % 16 == 0 for t in (xc, wc, bc)))
         with torch.cuda.device(dev):
             ptrs, stream = cuda_args(xc, wc, bc, slots, out)
             _build.launch("banked_matmul", *ptrs, n_blocks, block_b, d, h, k,
-                          _DTYPE_CODE[x.dtype], stream)
-        banked_matmul.launches[str(x.dtype).removeprefix("torch.")] += 1
+                          _VARIANT_CODE[kind], stream)
+        banked_matmul.launches[kind] += 1
     return out
 
 

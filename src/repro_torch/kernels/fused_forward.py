@@ -45,7 +45,7 @@ ACTION_FORWARD = 0
 ACTION_DROP = 1
 ACTION_FLAG = 2
 
-# The kernel gives one lane to each hidden unit.
+# The kernel's layer 1 covers the hidden units with four 8-wide MMA tiles.
 MAX_HIDDEN = 32
 
 
@@ -134,7 +134,7 @@ def fused_forward(
     k, h, w_words = bank_w1.shape
     c = bank_w2.shape[1]
     if h > MAX_HIDDEN:
-        raise ValueError(f"hidden={h} exceeds the kernel's {MAX_HIDDEN} lanes")
+        raise ValueError(f"hidden={h} exceeds the kernel's {MAX_HIDDEN} units")
     if x.dtype != torch.int32 or bank_w1.dtype != torch.int32:
         raise TypeError("packet rows and packed weights must be torch.int32")
     if x.stride(-1) != 1:

@@ -5,10 +5,13 @@ GPU machine with:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-Shapes cover ragged widths (W not a multiple of 4, H below and above 32
-lanes, several outputs C), packet rows whose stride is not a multiple of
-16 bytes, strided payload views of the packet rows, and for the banked
-kernels ragged blocks, D and H, out-of-range slot ids and both dtypes.
+Shapes cover ragged widths (W not a multiple of 4 or 8, H below and above
+32 units, several outputs C), packet rows whose stride is not a multiple
+of 16 bytes, strided payload views of the packet rows, the data plane's
+batch (B = 2048, K = 16), and for the banked kernels ragged blocks, D and
+H, row tiles that would cross a block, H past the wgmma column tile,
+out-of-range slot ids and both dtypes; each banked_matmul case checks the
+variant that ran (``matmul_variant``).
 """
 
 import numpy as np
@@ -42,7 +45,8 @@ def _bank(rng, k, w, h, c, dev):
                              for _ in range(k)])
 
 
-@pytest.mark.parametrize("w,h,c", [(64, 16, 1), (256, 32, 1), (36, 20, 3), (7, 1, 2)])
+@pytest.mark.parametrize("w,h,c", [(64, 16, 1), (256, 32, 1), (36, 20, 3), (7, 1, 2),
+                                   (2048, 32, 1), (12, 32, 2)])
 @pytest.mark.parametrize("meta,gather", [(16, True), (0, True), (16, False), (0, False)])
 def test_fused_kernel_matches_plain(dev, w, h, c, meta, gather):
     rng = np.random.default_rng(w * 100 + h)
@@ -81,6 +85,28 @@ def test_xnor_kernel_matches_plain(dev, b, h, w):
     assert torch.equal(got, ref.xnor_matmul_ref(x, wts))
 
 
+@pytest.mark.parametrize("h", [1, 20, 32])
+@pytest.mark.parametrize("stride_pad", [0, 3])
+def test_fused_kernel_at_dataplane_batch(dev, h, stride_pad):
+    """B = 2048 packets over K = 16 slots, block_b 256, gather mode with
+    actions; stride_pad 3 makes the row stride 275 words (not a multiple
+    of 16 bytes), so the kernel takes its 4-byte loads."""
+    rng = np.random.default_rng(2048 + h + stride_pad)
+    k, b, bb, w = 16, 2048, 256, 256
+    bank = _bank(rng, k, w, h, 1, dev)
+    rows = _words(rng, (b, 16 + w + stride_pad), dev)[:, :16 + w]
+    rows[:, 2] = torch.from_numpy(rng.integers(0, 2, b)).to(dev, torch.int32)
+    g = tbank.group_by_slot_padded(
+        torch.from_numpy(rng.integers(0, k, b)).to(dev), k, bb)
+    args = (rows, bank["w1p"], bank["b1"], bank["w2"], bank["b2"], g.block_slots, g.row_ids)
+    kw = dict(block_b=bb, meta_words=16, with_actions=True)
+    got = ff.fused_forward(*args, **kw)
+    want = ff.fused_forward_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], atol=ATOL, rtol=RTOL)
+
+
 def test_kernels_reject_what_they_cannot_take(dev):
     rng = np.random.default_rng(0)
     bank = _bank(rng, 2, 8, 33, 1, dev)
@@ -95,9 +121,12 @@ def test_kernels_reject_what_they_cannot_take(dev):
                          bank["b2"], slots, block_b=8)
     with pytest.raises(RuntimeError, match="shared memory"):
         bnn_xnor.xnor_matmul(_words(rng, (1, 2048), dev), _words(rng, (1, 2048), dev))
-    with pytest.raises(RuntimeError, match="shared memory"):
-        ff.fused_forward(_words(rng, (8, 2048), dev), _words(rng, (2, 8, 2048), dev),
-                         bank["b1"], bank["w2"], bank["b2"], slots, block_b=8)
+    # The fused kernel keeps no row in shared memory: W = 2048 is taken,
+    # and matches its plain version.
+    args = (_words(rng, (8, 2048), dev), _words(rng, (2, 8, 2048), dev),
+            bank["b1"], bank["w2"], bank["b2"], slots)
+    torch.testing.assert_close(ff.fused_forward(*args, block_b=8),
+                               ff.fused_forward_ref(*args, block_b=8), atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.parametrize("b,bb,h,w,k", [
@@ -117,20 +146,30 @@ def test_banked_xnor_layer1_matches_plain(dev, b, bb, h, w, k):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,bb,d,h,k", [
+# Shared with tests/test_torch_variants.py, which holds the variant rule on
+# the CPU: (B, block_b, D, H, K).  (320, 160, 64, 200, 3): block_b is not a
+# multiple of the 128-row tile and H = 200 is not a multiple of the column
+# tile; (192, 96, 64, 64, 2): a 128-row tile would cross a block.
+MATMUL_SHAPES = [
     (64, 16, 16, 8, 3), (120, 40, 37, 70, 2), (256, 128, 960, 960, 4), (33, 33, 1, 5, 1),
-])
+    (320, 160, 64, 200, 3), (192, 96, 64, 64, 2), (256, 128, 72, 36, 2),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,bb,d,h,k", MATMUL_SHAPES)
 def test_banked_matmul_matches_plain(dev, dtype, b, bb, d, h, k):
     rng = np.random.default_rng(b + d + h)
     x, w, bias = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev, dtype)
                   for s in ((b, d), (k, d, h), (k, h)))
     slots = torch.from_numpy(rng.integers(-1, k + 1, b // bb)).to(dev)  # clamped
-    before = sum(bm.banked_matmul.launches.values())
+    slots[0] = k + 5  # at least one slot id out of range
+    kind = bm.matmul_variant(dtype, d, h)
+    before = bm.banked_matmul.launches[kind]
     got = bm.banked_matmul(x, w, bias, slots, block_b=bb)
     want = bm.banked_matmul_ref(x, w, bias, slots, block_b=bb)
     torch.cuda.synchronize()
-    assert sum(bm.banked_matmul.launches.values()) == before + 1
+    assert bm.banked_matmul.launches[kind] == before + 1
     assert got.dtype == dtype
     # f32: another summation order over d terms; bf16: one rounding of that
     tol = dict(atol=1e-2, rtol=1e-2) if dtype == torch.bfloat16 else dict(atol=2e-3, rtol=1e-5)
