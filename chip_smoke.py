@@ -18,8 +18,10 @@ Phases, in order; any failure raises and exits non-zero:
      ``meta_words=16`` and actions, in gather mode with ``meta_words=0``,
      and in contiguous mode, and at the data plane's shape (gather,
      ``meta_words=16`` with actions, K = 16, B = 2048, ``block_b`` 256);
-     ``xnor_matmul`` at B in {1, 8192}.  Integers and actions must be
-     equal, scores within atol 1e-5 (layer 2 sums in another order);
+     ``xnor_matmul`` at B in {1, 256, 8192} (the control-plane replay's
+     two shapes and ``inference_only``'s; the line names the warps per CTA
+     that ``xnor_warps`` picked).  Integers and actions must be equal,
+     scores within atol 1e-5 (layer 2 sums in another order);
    * ``banked_xnor_layer1`` at H32, B = 8192, ``block_b`` = 256, on the
      (2K = 32)-slot stack of two K = 16 banks, steered with ``flip_slots``
      by a device scalar ``active`` in {0, 1}: bit-equal to its plain
@@ -71,15 +73,20 @@ object, ``binary_mma_rates``), the data plane's kpps per phase, the swap
 epoch's ``apply_us`` committed by flip and by re-stage, the profiles, and
 one JSON object listing every kernel with its launches (summed over the
 parts of phase 4 that ran it), error, time, plain-version time, bound and
-library time (and, for ``banked_matmul``, its ``variant``).  The last
-line is ``{"ok": true, "device": {...}}``.
+library time (and, for ``banked_matmul``, its ``variant``; for
+``xnor_matmul``, its ``warps``), and a ``launch_floor_ms`` line: the
+device time of one PyTorch kernel on 128 bytes, taken as the kernels'
+times are, against which the B = 1 row reads.  The last line is
+``{"ok": true, "device": {...}}``.
 A kernel's ``ms`` is its device time, from CUDA events around calls queued
 behind a busy-wait kernel; ``library_ms`` is taken the same way;
 ``call_ms`` (the wrapper call, host overhead included) and ``plain_ms`` are
 CUDA-event medians over back-to-back calls.  Inputs stay in the 50 MB L2
-cache between calls where they fit.  A ``design_ceilings`` line gives the
-POPC-issue ceiling of the XNOR kernels' design, computed from the row count
-and the card's clock, not measured.
+cache between calls where they fit.  ``xnor_matmul``'s ``library_ms`` is
+``torch._int_mm`` on the +-1 int8 unpacked operands ((B, d) x (d, H) ->
+int32, equal to the kernel's output, which is checked; unpacked outside
+the timed window), where it takes the shape: it needs more than 16 rows,
+so the B = 1 row records none.
 """
 
 from __future__ import annotations
@@ -99,7 +106,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
-POPC_PER_CLOCK_PER_SM = 16        # compute capability 9.0 instruction throughput
 N, BLOCK_B = 8192, 256
 ATOL, RTOL = 1e-5, 1e-6
 K_DB = 16                          # slots in each half of the double bank
@@ -107,6 +113,9 @@ LM_D, LM_SLOTS, LM_BLOCK_B = 960, 2, 128   # smollm_360m: d_model, bank_slots
 DP_QUEUES, DP_BATCH, DP_RING, DP_SCALE = 4, 2048, 16384, 16
 MM_VARIANT = {"float32": "f32/fma", "bfloat16": "bf16/wgmma"}  # at the LM width
 CHURN_MODELS = 32
+CP_PACKETS = 256                   # the control-plane replay's boundary trace
+XNOR_ROWS = (1, CP_PACKETS, N)     # xnor_matmul's row counts on the main paths
+INT_MM_MIN_ROWS = 16               # torch._int_mm takes more rows than this
 F32_UNIT_ROUNDOFF = 2.0 ** -24
 PROB_LAMBDA = 10.0                 # confidence of the probabilistic f32 bound
 
@@ -115,9 +124,9 @@ def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def nvidia_smi(query: str, extra: str = "") -> str:
+def nvidia_smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", f"--format=csv,noheader{extra}"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
 
@@ -153,6 +162,17 @@ def kernel_device_ms(call, iters: int = 20, repeats: int = 5) -> float:
         else:
             cycles *= 2
     return float(np.median(times))
+
+
+def warm_up_clocks(dev) -> None:
+    """Bring the card's clocks up from idle: one second of matrix products."""
+    import torch
+
+    a = torch.randn(4096, 4096, device=dev)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 1.0:
+        a @ a
+        torch.cuda.synchronize()
 
 
 def profile_step(step, iters: int = 20, top: int = 8) -> dict:
@@ -216,8 +236,6 @@ def main() -> int:
 
     # -- 1. the card ----------------------------------------------------------
     print(nvidia_smi("name,power.limit"), flush=True)
-    clock_mhz = float(nvidia_smi("clocks.max.sm", ",nounits"))
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -256,13 +274,7 @@ def main() -> int:
             times.append(start.elapsed_time(end) / iters)
         return float(np.median(times))
 
-    # Bring the clocks up from idle before the probe and the first timing.
-    a = torch.randn(4096, 4096, device=dev)
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < 1.0:
-        a @ a
-        torch.cuda.synchronize()
-    del a
+    warm_up_clocks(dev)  # before the probe and the first timing
     rates = [json.loads(line) for line in subprocess.run(
         [probe], capture_output=True, text=True, check=True, timeout=120).stdout.splitlines()]
     print(json.dumps({"binary_mma_rates": rates}), flush=True)
@@ -277,15 +289,6 @@ def main() -> int:
         t_ops = (bit_macs / b1_bit_macs_per_s + fp32_ops / FP32_OPS_PER_S
                  + bf16_ops / BF16_TENSOR_OPS_PER_S)
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-    ceilings = []
-
-    def popc_ceiling(name: str, rows: int) -> None:
-        """The warp-per-row design's POPC-issue ceiling: computed from the
-        row count and the card's clock, not measured, so it is printed on
-        a line of its own and kept out of the ``kernels`` line."""
-        ceilings.append({"name": name, "rows": rows, "popc_ceiling_ms": rows * H * W / (
-            POPC_PER_CLOCK_PER_SM * n_sm * clock_mhz * 1e6) * 1e3})
 
     def nbytes(*ts) -> int:
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
@@ -366,11 +369,11 @@ def main() -> int:
             n_rows * H * D, 2.0 * n_rows * H * C)
         record(f"{variant}/K{k}{shape}", name, fused_src, fused_tpu,
                float((got - want).abs().max()), run_k, run_p, b_ms, b_by)
-        popc_ceiling(name, n_rows)
 
     bank, x = banks[2]
     w = bank["w1p"][0]
-    for b in (1, N):
+    w_pm = ref.unpack_bits(w, D).t()  # (d, H) +-1 int8, column-major
+    for b in XNOR_ROWS:
         xin = pkt.payload_of(x)[:b]
         run_k = lambda: bnn_xnor.xnor_matmul(xin, w)  # noqa: E731
         run_p = lambda: ref.xnor_matmul_ref(xin, w)  # noqa: E731
@@ -378,11 +381,30 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             fail(f"xnor_matmul B={b}: {int((got != want).sum())} dot products differ")
+        library, refused = None, f"it needs more than {INT_MM_MIN_ROWS} rows"
+        if b > INT_MM_MIN_ROWS:
+            # The yardstick: torch._int_mm on the unpacked +-1 operands.
+            x_pm = ref.unpack_bits(xin, D)
+            try:
+                y_pm = torch._int_mm(x_pm, w_pm)
+            except RuntimeError as e:
+                refused = str(e).splitlines()[0]
+            else:
+                if not torch.equal(y_pm, want):
+                    fail(f"xnor_matmul B={b}: torch._int_mm on the unpacked operands differs")
+                library = lambda: torch._int_mm(x_pm, w_pm)  # noqa: E731
+        if library is None:
+            print(f"xnor_matmul B={b}: no library time, torch._int_mm refuses the shape: "
+                  f"{refused}", flush=True)
         b_ms, b_by = bound(nbytes(xin, w) + b * H * 4, b * H * D, 0.0)
         record(f"xnor/B{b}", f"xnor_matmul B={b}",
                "src/repro_torch/kernels/csrc/xnor_matmul.cu",
-               "src/repro/kernels/bnn_xnor.py:79", 0.0, run_k, run_p, b_ms, b_by)
-        popc_ceiling(f"xnor_matmul B={b}", b)
+               "src/repro/kernels/bnn_xnor.py:79", 0.0, run_k, run_p, b_ms, b_by,
+               library=library)
+        entries[f"xnor/B{b}"]["warps"] = bnn_xnor.xnor_warps(b, H)
+    launch_floor = torch.zeros(32, dtype=torch.int32, device=dev)  # 128 bytes
+    print(json.dumps({"launch_floor_ms": kernel_device_ms(lambda: launch_floor.add_(1))}),
+          flush=True)
 
     # The kernel-level double bank: two K = 16 banks stacked into one
     # (2K, ...) allocation, steered by the device scalar ``active``.
@@ -414,7 +436,6 @@ def main() -> int:
     record("banked_xnor", f"banked_xnor_layer1 K={K_DB}+{K_DB}",
            "src/repro_torch/kernels/csrc/banked_xnor_layer1.cu",
            "src/repro/kernels/banked_matmul.py:172", 0.0, run_k, run_p, b_ms, b_by)
-    popc_ceiling(f"banked_xnor_layer1 K={K_DB}+{K_DB}", N)
 
     gen = torch.Generator().manual_seed(41)
     x_lm = torch.randn(N, LM_D, generator=gen)
@@ -530,20 +551,19 @@ def main() -> int:
     record("dbf", f"fused_forward double_buffered_forward gather/meta16/actions "
            f"K={K_DB}+{K_DB}", fused_src, fused_tpu,
            float((got[0] - want[0]).abs().max()), run_k, run_p, b_ms, b_by, call=run_call)
-    popc_ceiling(f"double_buffered_forward K={K_DB}+{K_DB}", g_db.b_pad)
 
     # -- 4. the main paths, each part with the counts set to 0 around it -------
     def counted(part):
         """Run ``part`` with every launch count set to 0 just before it;
         return its result and the counts read just after."""
         ff.fused_forward.launches.clear()
-        bnn_xnor.xnor_matmul.launches = 0
+        bnn_xnor.xnor_matmul.launches.clear()
         bm.banked_matmul.launches.clear()
         bm.banked_xnor_layer1.launches = 0
         result = part()
         torch.cuda.synchronize()
         return result, {"fused": dict(ff.fused_forward.launches),
-                        "xnor": bnn_xnor.xnor_matmul.launches,
+                        "xnor": dict(bnn_xnor.xnor_matmul.launches),
                         "banked_matmul": dict(bm.banked_matmul.launches),
                         "banked_xnor": bm.banked_xnor_layer1.launches}
 
@@ -594,13 +614,19 @@ def main() -> int:
     want = executor.forward(slot0, pkt.payload_of(x), backend="ref")
     if not torch.allclose(y, want, atol=ATOL, rtol=RTOL):
         fail("inference_only differs from its plain version")
-    entries[f"xnor/B{N}"]["launches"] += n["xnor"]
+    entries[f"xnor/B{N}"]["launches"] += n["xnor"].get(N, 0)
 
-    trace = switching.boundary_trace(256, pkt.payload_of(x)[:256].cpu().numpy().view(np.uint32))
+    trace = switching.boundary_trace(
+        CP_PACKETS, pkt.payload_of(x)[:CP_PACKETS].cpu().numpy().view(np.uint32))
     cp, n = counted(lambda: switching.control_plane_replay(slot0, slot1, trace))
     if not 0 <= cp.wrong_verdict_packets <= cp.wrong_model_packets <= 128:
         fail(f"control-plane replay counts out of range: {cp}")
-    entries["xnor/B1"]["launches"] += n["xnor"]
+    # One packet per call, and the two B = 256 calls that precompute each
+    # model's verdicts: each shape counts under its own row.
+    if set(n["xnor"]) != {1, CP_PACKETS}:
+        fail(f"control-plane replay: xnor_matmul launched at row counts {n['xnor']}")
+    for b, launches in n["xnor"].items():
+        entries[f"xnor/B{b}"]["launches"] += launches
     end_to_end["control_plane_switch_latency_us"] = cp.switch_latency_us
 
     # The kernel-level double bank: each kernel called, the one scalar
@@ -778,7 +804,6 @@ def main() -> int:
     print(json.dumps({"dataplane_tick_profile": tick_profile}))
     end_to_end["dataplane_tick_device_idle_share"] = tick_profile["device_idle_share"]
     print(json.dumps({"end_to_end": end_to_end}))
-    print(json.dumps({"design_ceilings": ceilings}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,8 @@ The file name carries a hash of the sources and flags, so an edited
 source is rebuilt and a stale library is never loaded.  ``build_all``
 starts every compile at once and waits for all of them.  Pointers and the
 stream are passed as ``ctypes.c_void_p``; every launch function returns
-its ``cudaError_t`` (or a negative code of its own, such as a row that
-does not fit the kernel's shared memory or a tensor map the driver could
-not encode) and ``launch`` raises if it is not 0.
+its ``cudaError_t`` (or a negative code of its own, such as a tensor map
+the driver could not encode) and ``launch`` raises if it is not 0.
 """
 
 from __future__ import annotations
@@ -52,7 +51,7 @@ SIGNATURES = {
         _P, _P, _P,        # x, w, out
         _I, _I, _I,        # B, H, W
         _I, _I,            # x row stride, w row stride
-        _P,                # stream
+        _I, _P,            # warps per CTA (4 or 16, bnn_xnor.xnor_warps), stream
     ]),
     "banked_xnor_layer1": ("banked_xnor_layer1_launch", [
         _P, _P, _P, _P, _P,  # x, w1, b1, block_slots, out

@@ -41,7 +41,7 @@ __all__ = ["PACK", "stack_double_bank", "flip_slots", "banked_matmul",
            "banked_matmul_ref", "matmul_variant", "banked_xnor_layer1",
            "banked_xnor_layer1_ref"]
 
-# The XNOR kernel gives one lane to each hidden unit.
+# The XNOR kernel covers four n8 tiles of hidden units.
 MAX_HIDDEN = 32
 
 # variant codes of banked_matmul_launch
@@ -214,7 +214,7 @@ def banked_xnor_layer1(
     bsz, w_words = x_packed.shape
     k, h, _ = bank_w1.shape
     if h > MAX_HIDDEN:
-        raise ValueError(f"hidden={h} exceeds the kernel's {MAX_HIDDEN} lanes")
+        raise ValueError(f"hidden={h} exceeds the kernel's {MAX_HIDDEN} units")
     if x_packed.dtype != torch.int32 or bank_w1.dtype != torch.int32:
         raise TypeError("packed words must be torch.int32")
     if bank_b1.dtype != torch.float32:

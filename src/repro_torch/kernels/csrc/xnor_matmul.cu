@@ -4,64 +4,110 @@
 // reached through xnor_matmul's pl.pallas_call):
 //   out[b][h] = d - 2 * sum_k popc(x[b][k] ^ w[h][k]),   d = 32 W.
 //
-// Design.  The same warp-per-row, lane-per-hidden-unit scheme as the fused
-// kernel (xnor_common.cuh): a CTA of 8 warps covers a tile of 32 rows by 32
-// hidden units, stages its 32 weight rows transposed in shared memory, and
-// each warp computes one row at a time.  Ragged B and H are masked, so
-// B = 1 (the single-packet Table V replay) works.
+// Bound.  B W * 4 bytes of rows and H W * 4 of weights read, B H * 4
+// written, and B H d binary MACs.  At B = 8192, H = 32, d = 8192 that is
+// about 9.5 MB: 2.83 us at 3.35 TB/s, against 0.43 us for the MACs at the
+// b1.and.popc MMA rate that chip_smoke.py measures on the card (about
+// 4.9e15 bit-MACs/s).  At B = 1 (the Table V control-plane replay, one
+// packet per call) the 33 KB of the call take about 10 ns at either rate:
+// the time is the launch and the latency of one chain of loads, MMAs and
+// one reduction, and the design keeps that chain short.
 //
-// Bound.  H * W XOR+POPC word operations per row; the POPC pipe (16 per
-// clock per SM on compute capability 9.0) caps this design, as for the
-// fused kernel, though neither kernel runs near that cap yet.
+// Design.  Layer 1 of the fused kernel (binary_mma.cuh) over a tile of
+// rows by four n8 tiles (32) of weight rows: grid ceil(B / rows) x
+// ceil(H / 32), ragged B and H masked (rows past B and weight rows past H
+// load as zero and are not stored).  The warps of a CTA split the 512-bit
+// spans of d; their integer sums meet in shared memory once.  The wrapper
+// picks the CTA's shape before launch from the number of row tiles
+// (bnn_xnor.xnor_warps):
+//   * 16 warps over 16 rows (one m16 tile) for up to 32 tiles of 32 x 32:
+//     at B = 1 the grid is one CTA, and its 16 warps take one 512-bit span
+//     each at W = 256, so no warp walks the spans in turn.  One m tile
+//     keeps the 16 warps' sums within the 48 KB of static shared memory,
+//     and one such CTA fits on an SM;
+//   * 4 warps over 32 rows (two m16 tiles sharing the B fragments) past
+//     that, as in the fused kernel: four CTAs share an SM, so B = 8192
+//     (256 CTAs) runs in one wave.
+// Loads are 16 bytes a thread where x and w are 16-byte aligned with row
+// strides of a multiple of 4 words and W is a multiple of 4 (kVec), 4 bytes
+// otherwise.  No row and no weight is staged in shared memory, so any W is
+// taken.
 
-#include "xnor_common.cuh"
+#include "binary_mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerCta = 32;
+using bmma::kLanes;
+using bmma::kMaxTiles;
 
+template <int kWarps, int M, bool kVec>
 __global__ void __launch_bounds__(kWarps * kLanes)
 xnor_matmul_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ w,
-                   int32_t* __restrict__ out, int B, int H, int W, int W4,
+                   int32_t* __restrict__ out, int B, int H, int W,
                    long x_stride, long w_stride) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int warp = threadIdx.x / kLanes;
+  __shared__ int red[kWarps][bmma::kRed<M>][kLanes];
   const int lane = threadIdx.x % kLanes;
-  uint32_t* sw = smem;
-  uint32_t* sx = smem + W4 * kPitch + warp * W4;
+  const int g = lane / 4, t = lane % 4;
+  const int r_base = blockIdx.x * 16 * M;
+  const int h0 = blockIdx.y * 8 * kMaxTiles;
 
-  const int h0 = blockIdx.y * kLanes;
-  const int nh = min(kLanes, H - h0);
-  stage_weights(sw, w + (size_t)h0 * w_stride, nh, W, W4, w_stride);
-  __syncthreads();
+  const uint32_t* rows[2 * M];
+#pragma unroll
+  for (int i = 0; i < 2 * M; ++i) {
+    const int r = r_base + g + 8 * i;
+    rows[i] = r < B ? x + (size_t)r * x_stride : nullptr;
+  }
+  const uint32_t* wrow[kMaxTiles];
+#pragma unroll
+  for (int n = 0; n < kMaxTiles; ++n) {
+    const int j = h0 + 8 * n + g;
+    wrow[n] = j < H ? w + (size_t)j * w_stride : nullptr;
+  }
+  const int n_tiles = min(kMaxTiles, (H - h0 + 7) / 8);
+
+  int mism[kMaxTiles][4];
+  if (!bmma::layer1_mismatches<kWarps, M, kVec>(red, rows, wrow, n_tiles, W, mism)) return;
+  const int m = threadIdx.x / kLanes;
 
   const int d_bits = W * 32;
-  const int r_hi = min((int)(blockIdx.x + 1) * kRowsPerCta, B);
-  for (int r = blockIdx.x * kRowsPerCta + warp; r < r_hi; r += kWarps) {
-    stage_row(sx, x + (size_t)r * x_stride, W, W4, lane);
-    const int mism = row_mismatches(sx, sw, W4, lane);
-    __syncwarp();  // the next row overwrites sx
-    if (lane < nh) out[(size_t)r * H + h0 + lane] = d_bits - 2 * mism;
-  }
+#pragma unroll
+  for (int n = 0; n < kMaxTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = h0 + 8 * n + 2 * t + e;
+      if (j >= H) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r_base + g + 8 * h + 16 * m;
+        if (r < B) out[(size_t)r * H + j] = d_bits - 2 * mism[n][2 * h + e];
+      }
+    }
+}
+
+template <int kWarps, int M>
+int launch(const void* x, const void* w, void* out, int B, int H, int W, int x_stride,
+           int w_stride, cudaStream_t stream) {
+  auto kernel = bmma::vec_loads(W, x, x_stride, w, w_stride) ? xnor_matmul_kernel<kWarps, M, true>
+                                                             : xnor_matmul_kernel<kWarps, M, false>;
+  const dim3 grid((B + 16 * M - 1) / (16 * M), (H + 8 * kMaxTiles - 1) / (8 * kMaxTiles));
+  kernel<<<grid, kWarps * kLanes, 0, stream>>>(
+      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(w),
+      static_cast<int32_t*>(out), B, H, W, x_stride, w_stride);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// warps: 4 (32 rows per CTA) or 16 (16 rows per CTA), as xnor_warps picks.
 extern "C" int xnor_matmul_launch(const void* x, const void* w, void* out,
                                   int B, int H, int W, int x_stride,
-                                  int w_stride, void* stream) {
-  const int W4 = (W + 3) / 4 * 4;
-  const size_t smem = xnor_smem_bytes(W4, kWarps);
-  const int err = reserve_smem(xnor_matmul_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((B + kRowsPerCta - 1) / kRowsPerCta, (H + kLanes - 1) / kLanes);
-  xnor_matmul_kernel<<<grid, kWarps * kLanes, smem, (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(w),
-      static_cast<int32_t*>(out), B, H, W, W4, x_stride, w_stride);
-  return cudaGetLastError();
+                                  int w_stride, int warps, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (warps == 4) return launch<4, 2>(x, w, out, B, H, W, x_stride, w_stride, st);
+  if (warps == 16) return launch<16, 1>(x, w, out, B, H, W, x_stride, w_stride, st);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* xnor_matmul_error_string(int err) {
-  return xnor_error_string(err);
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -6,12 +6,14 @@ GPU machine with:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Shapes cover ragged widths (W not a multiple of 4 or 8, H below and above
-32 units, several outputs C), packet rows whose stride is not a multiple
-of 16 bytes, strided payload views of the packet rows, the data plane's
-batch (B = 2048, K = 16), and for the banked kernels ragged blocks, D and
-H, row tiles that would cross a block, H past the wgmma column tile,
-out-of-range slot ids and both dtypes; each banked_matmul case checks the
-variant that ran (``matmul_variant``).
+32 units and not a multiple of 8, several outputs C), long rows (W = 2048
+words), packet rows whose stride is not a multiple of 16 bytes (the
+kernels' 4-byte loads), 16-byte aligned payload views of (B, 272) packet
+rows (their 16-byte loads), the data plane's batch (B = 2048, K = 16),
+``xnor_matmul`` on both CTA shapes of ``xnor_warps``, and for the banked
+kernels ragged blocks, D and H, row tiles that would cross a block, H past
+the wgmma column tile, out-of-range slot ids and both dtypes; each
+banked_matmul case checks the variant that ran (``matmul_variant``).
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.core import bank as tbank
+from repro_torch.core import packet as pkt
 from repro_torch.kernels import banked_matmul as bm
 from repro_torch.kernels import bnn_xnor, fused_forward as ff, ref
 
@@ -73,16 +76,39 @@ def test_fused_kernel_matches_plain(dev, w, h, c, meta, gather):
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("b,h,w", [(1, 32, 256), (33, 40, 64), (100, 7, 9), (8192, 32, 256)])
+# (B, H, W) of the xnor_matmul cases, shared with tests/test_torch_variants.py,
+# which holds the warp-count rule on the CPU: B = 1 and 33 at W = 2048 on
+# both H tiles' edges, H = 40 and 7 (not multiples of 32 or 8), B = 4200 by
+# H = 40 (4-warp tiles, ragged in both) and B = 8192.
+XNOR_SHAPES = [
+    (1, 32, 256), (33, 40, 64), (100, 7, 9), (8192, 32, 256), (1, 32, 2048),
+    (1, 40, 2048), (33, 32, 2048), (33, 40, 2048), (4200, 40, 64),
+]
+
+
+def _xnor_matches_plain(x, wts):
+    b = x.shape[0]
+    before = bnn_xnor.xnor_matmul.launches[b]
+    got = bnn_xnor.xnor_matmul(x, wts)
+    torch.cuda.synchronize()
+    assert bnn_xnor.xnor_matmul.launches[b] == before + 1
+    assert torch.equal(got, ref.xnor_matmul_ref(x, wts))
+
+
+@pytest.mark.parametrize("b,h,w", XNOR_SHAPES)
 def test_xnor_kernel_matches_plain(dev, b, h, w):
     rng = np.random.default_rng(b + h + w)
     x = _words(rng, (b, w + 3), dev)[:, 3:]  # rows with a stride of w + 3 words
-    wts = _words(rng, (h, w), dev)
-    before = bnn_xnor.xnor_matmul.launches
-    got = bnn_xnor.xnor_matmul(x, wts)
-    torch.cuda.synchronize()
-    assert bnn_xnor.xnor_matmul.launches == before + 1
-    assert torch.equal(got, ref.xnor_matmul_ref(x, wts))
+    _xnor_matches_plain(x, _words(rng, (h, w), dev))
+
+
+@pytest.mark.parametrize("b,h", [(1, 32), (33, 40), (256, 7), (8192, 32)])
+def test_xnor_kernel_on_packet_rows(dev, b, h):
+    """Payload views of (B, 272) packet rows: 16-byte aligned with a stride
+    of 272 words, so the kernel takes its 16-byte loads."""
+    rng = np.random.default_rng(272 + b + h)
+    rows = _words(rng, (b, pkt.META_WORDS + pkt.PAYLOAD_WORDS), dev)
+    _xnor_matches_plain(pkt.payload_of(rows), _words(rng, (h, pkt.PAYLOAD_WORDS), dev))
 
 
 @pytest.mark.parametrize("h", [1, 20, 32])
@@ -119,22 +145,18 @@ def test_kernels_reject_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="one device"):
         ff.fused_forward(x, bank["w1p"].cpu(), bank["b1"], bank["w2"],
                          bank["b2"], slots, block_b=8)
-    with pytest.raises(RuntimeError, match="shared memory"):
-        bnn_xnor.xnor_matmul(_words(rng, (1, 2048), dev), _words(rng, (1, 2048), dev))
-    # The fused kernel keeps no row in shared memory: W = 2048 is taken,
-    # and matches its plain version.
+    # No kernel keeps a row in shared memory: W = 2048 is taken, and
+    # matches the plain version.
+    x_long, w_long = _words(rng, (1, 2048), dev), _words(rng, (1, 2048), dev)
+    assert torch.equal(bnn_xnor.xnor_matmul(x_long, w_long), ref.xnor_matmul_ref(x_long, w_long))
     args = (_words(rng, (8, 2048), dev), _words(rng, (2, 8, 2048), dev),
             bank["b1"], bank["w2"], bank["b2"], slots)
     torch.testing.assert_close(ff.fused_forward(*args, block_b=8),
                                ff.fused_forward_ref(*args, block_b=8), atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("b,bb,h,w,k", [
-    (64, 32, 32, 256, 4), (90, 45, 7, 9, 3), (40, 40, 1, 64, 2), (8192, 256, 32, 256, 32),
-])
-def test_banked_xnor_layer1_matches_plain(dev, b, bb, h, w, k):
-    rng = np.random.default_rng(b + h + w)
-    x = _words(rng, (b, w + 5), dev)[:, 5:]  # rows with a stride of w + 5 words
+def _banked_xnor_matches_plain(rng, x, h, k, bb, dev):
+    b, w = x.shape
     w1 = _words(rng, (k, h, w), dev)
     b1 = torch.from_numpy(rng.normal(size=(k, h)).astype(np.float32)).to(dev)
     slots = torch.from_numpy(rng.integers(-1, k + 1, b // bb)).to(dev)  # clamped
@@ -144,6 +166,24 @@ def test_banked_xnor_layer1_matches_plain(dev, b, bb, h, w, k):
     torch.cuda.synchronize()
     assert bm.banked_xnor_layer1.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,bb,h,w,k", [
+    (64, 32, 32, 256, 4), (90, 45, 7, 9, 3), (40, 40, 1, 64, 2), (8192, 256, 32, 256, 32),
+    (96, 48, 32, 2048, 3), (33, 33, 20, 2048, 2),
+])
+def test_banked_xnor_layer1_matches_plain(dev, b, bb, h, w, k):
+    rng = np.random.default_rng(b + h + w)
+    x = _words(rng, (b, w + 5), dev)[:, 5:]  # rows with a stride of w + 5 words
+    _banked_xnor_matches_plain(rng, x, h, k, bb, dev)
+
+
+@pytest.mark.parametrize("b,bb,h,k", [(8192, 256, 32, 16), (90, 45, 7, 3)])
+def test_banked_xnor_layer1_on_packet_rows(dev, b, bb, h, k):
+    """Payload views of (B, 272) packet rows: the 16-byte loads."""
+    rng = np.random.default_rng(272 + b + h)
+    rows = _words(rng, (b, pkt.META_WORDS + pkt.PAYLOAD_WORDS), dev)
+    _banked_xnor_matches_plain(rng, pkt.payload_of(rows), h, k, bb, dev)
 
 
 # Shared with tests/test_torch_variants.py, which holds the variant rule on
