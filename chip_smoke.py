@@ -19,8 +19,9 @@ Phases, in order; any failure raises and exits non-zero:
      and in contiguous mode, and at the data plane's shape (gather,
      ``meta_words=16`` with actions, K = 16, B = 2048, ``block_b`` 256);
      ``xnor_matmul`` at B in {1, 256, 8192} (the control-plane replay's
-     two shapes and ``inference_only``'s; the line names the warps per CTA
-     that ``xnor_warps`` picked).  Integers and actions must be equal,
+     two shapes and ``inference_only``'s) and, in phase 4 once the slots
+     are trained, at ``evaluate``'s B = 2048 (the line names the warps per
+     CTA that ``xnor_warps`` picked).  Integers and actions must be equal,
      scores within atol 1e-5 (layer 2 sums in another order);
    * ``banked_xnor_layer1`` at H32, B = 8192, ``block_b`` = 256, on the
      (2K = 32)-slot stack of two K = 16 banks, steered with ``flip_slots``
@@ -58,10 +59,34 @@ Phases, in order; any failure raises and exits non-zero:
    the double-buffered flip commit and once with the re-stage commit: zero
    wrong verdicts, conservation, identical completion streams); and a
    ``SlotCache`` churn of 32 models over the 16 slots between the same
-   bursts (flip and re-stage give identical streams).  Every kernel must
-   have been launched in its part, and the LM-width bf16 ``banked_matmul``
-   through the ``bf16/wgmma`` kernel; the data plane's fused launches
-   count under the B = 2048 case;
+   bursts (flip and re-stage give identical streams); then the slice of
+   trained models, regimes and traces:
+   * ``bnn.train_slot_pair(seed=0, epochs=4, samples_per_group=1024)`` on
+     the card (the reference's defaults; its wall time is printed), each
+     slot's precision, recall and F1 through ``bnn.evaluate`` on the
+     ``val`` split (2 capture groups of 1024 rows: ``xnor_matmul`` at
+     B = 2048, its own row), held to the paper's Fig. 6 ordering (slot 0's
+     recall above slot 1's, slot 1's precision at least slot 0's) and to
+     the counts from the plain ``executor.forward(..., backend="ref")``;
+   * ``repro_torch.launch.packetpath --train`` on an 8192-packet boundary
+     trace with the fused strategy and ``--stream`` (its own training at
+     packetpath's defaults): wrong_slot = wrong_verdict = 0;
+   * every regime of ``REGIME_NAMES`` at one host, 16 slots, 4 queues and
+     ``scale=16`` (the synthetic file corpus for ``file-replay``, the fault
+     plan armed where the regime has one), played through the emergency
+     runtime's shape (batch 2048, ``block_b`` 256, ring 16384, fused, audit
+     and record on) and recorded by ``record()`` into a v2 trace under
+     ``build/traces/``, then loaded and replayed on a fresh
+     ``make_runtime``: ok, digest equal, zero wrong verdicts, conservation
+     and continuity; one line per regime gives its kpps, fused launches,
+     epochs, rolled-back epochs and trace bytes;
+   * the bounded epoch log: ``slot-thrash`` (an epoch every storm tick)
+     with ``log_capacity=4`` and a spill file under ``build/traces/``,
+     read back by ``load_epoch_spill``.
+   Every kernel must have been launched in its part, and the LM-width bf16
+   ``banked_matmul`` through the ``bf16/wgmma`` kernel; the data plane's
+   fused launches (the scenario, the regimes, their replays and the
+   bounded log) count under the B = 2048 case;
 5. profiles one fused ``packet_step`` (K = 2, B = 8192) and one data-plane
    tick at the flash-crowd size (the scenario's runtime, batch 2048 per
    queue, fed one 8192-packet burst per tick): device time by operator and
@@ -113,6 +138,9 @@ LM_D, LM_SLOTS, LM_BLOCK_B = 960, 2, 128   # smollm_360m: d_model, bank_slots
 DP_QUEUES, DP_BATCH, DP_RING, DP_SCALE = 4, 2048, 16384, 16
 MM_VARIANT = {"float32": "f32/fma", "bfloat16": "bf16/wgmma"}  # at the LM width
 CHURN_MODELS = 32
+TRAIN_EPOCHS, TRAIN_SAMPLES = 4, 1024   # bnn.train_slot_pair's defaults
+VAL_SAMPLES = 1024                 # per capture group of the val split
+LOG_CAPACITY = 4                   # the bounded epoch log's in-memory records
 CP_PACKETS = 256                   # the control-plane replay's boundary trace
 XNOR_ROWS = (1, CP_PACKETS, N)     # xnor_matmul's row counts on the main paths
 INT_MM_MIN_ROWS = 16               # torch._int_mm takes more rows than this
@@ -218,15 +246,17 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
-    from repro_torch.control import SlotCache
+    from repro_torch.control import SlotCache, load_epoch_spill
     from repro_torch.core import bank as bank_lib
     from repro_torch.core import executor, packet as pkt, pipeline, switching
-    from repro_torch.dataplane import (DataplaneRuntime, emergency_phases,
-                                       play, render)
+    from repro_torch.data import packets as pk
+    from repro_torch.dataplane import (DataplaneRuntime, FaultInjector,
+                                       emergency_phases, play, render, workloads)
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import banked_matmul as bm
     from repro_torch.kernels import bnn_xnor, fused_forward as ff
     from repro_torch.launch import packetpath
+    from repro_torch.train import bnn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -370,11 +400,11 @@ def main() -> int:
         record(f"{variant}/K{k}{shape}", name, fused_src, fused_tpu,
                float((got - want).abs().max()), run_k, run_p, b_ms, b_by)
 
-    bank, x = banks[2]
-    w = bank["w1p"][0]
-    w_pm = ref.unpack_bits(w, D).t()  # (d, H) +-1 int8, column-major
-    for b in XNOR_ROWS:
-        xin = pkt.payload_of(x)[:b]
+    def check_xnor(xin, w):
+        """``xnor_matmul`` on (B, W) rows ``xin`` and (H, W) weights ``w``
+        against its plain version, timed with ``torch._int_mm`` on the
+        unpacked +-1 operands as the library yardstick, under ``xnor/B{B}``."""
+        b = xin.shape[0]
         run_k = lambda: bnn_xnor.xnor_matmul(xin, w)  # noqa: E731
         run_p = lambda: ref.xnor_matmul_ref(xin, w)  # noqa: E731
         got, want = run_k(), run_p()
@@ -383,8 +413,8 @@ def main() -> int:
             fail(f"xnor_matmul B={b}: {int((got != want).sum())} dot products differ")
         library, refused = None, f"it needs more than {INT_MM_MIN_ROWS} rows"
         if b > INT_MM_MIN_ROWS:
-            # The yardstick: torch._int_mm on the unpacked +-1 operands.
             x_pm = ref.unpack_bits(xin, D)
+            w_pm = ref.unpack_bits(w, D).t()  # (d, H) +-1 int8, column-major
             try:
                 y_pm = torch._int_mm(x_pm, w_pm)
             except RuntimeError as e:
@@ -402,6 +432,10 @@ def main() -> int:
                "src/repro/kernels/bnn_xnor.py:79", 0.0, run_k, run_p, b_ms, b_by,
                library=library)
         entries[f"xnor/B{b}"]["warps"] = bnn_xnor.xnor_warps(b, H)
+
+    bank, x = banks[2]
+    for b in XNOR_ROWS:
+        check_xnor(pkt.payload_of(x)[:b], bank["w1p"][0])
     launch_floor = torch.zeros(32, dtype=torch.int32, device=dev)  # 128 bytes
     print(json.dumps({"launch_floor_ms": kernel_device_ms(lambda: launch_floor.add_(1))}),
           flush=True)
@@ -772,6 +806,139 @@ def main() -> int:
             fail(f"slot-cache churn: {stats['resident']} models resident in {K_DB} slots")
     if churned[True] != churned[False]:
         fail("slot-cache churn: flip and re-stage commits differ")
+
+    # Training on the card, then each slot on the val split through
+    # evaluate (xnor_matmul at B = the val split's rows, its own row).
+    def train():
+        t0 = time.perf_counter()
+        slots = bnn.train_slot_pair(seed=0, epochs=TRAIN_EPOCHS,
+                                    samples_per_group=TRAIN_SAMPLES)
+        torch.cuda.synchronize()
+        return slots, time.perf_counter() - t0
+
+    (trained, train_s), _ = counted(train)
+    print(f"train_slot_pair(seed=0, epochs={TRAIN_EPOCHS}, samples_per_group="
+          f"{TRAIN_SAMPLES}): {train_s:.2f} s wall", flush=True)
+    end_to_end["train_slot_pair_s"] = train_s
+    xb_val, y_val = pk.load_split("val", VAL_SAMPLES, 0)
+    w_val = pk.to_payload_words(xb_val)
+    val_rows = w_val.shape[0]
+    metrics, n = counted(lambda: [bnn.evaluate(s, w_val, y_val) for s in trained])
+    if set(n["xnor"]) != {val_rows}:
+        fail(f"evaluate: xnor_matmul launched at row counts {n['xnor']}, not {val_rows}")
+    x_val = pkt.to_device(w_val, dev)
+    for i, (slot, m) in enumerate(zip(trained, metrics)):
+        print(f"trained slot{i}: precision={m['precision']:.4f} recall={m['recall']:.4f} "
+              f"f1={m['f1']:.4f}", flush=True)
+        plain = executor.forward(slot, x_val, backend="ref")[:, 0].cpu().numpy() > 0
+        kernel = executor.forward(slot, x_val)[:, 0].cpu().numpy() > 0
+        if not np.array_equal(kernel, plain):
+            fail(f"trained slot{i}: {int((kernel != plain).sum())} verdicts differ "
+                 "from the plain executor")
+        counts = {"tp": int((plain & (y_val == 1)).sum()),
+                  "fp": int((plain & (y_val == 0)).sum()),
+                  "fn": int((~plain & (y_val == 1)).sum())}
+        if counts != {k: m[k] for k in counts}:
+            fail(f"trained slot{i}: evaluate gave {m}, the plain executor {counts}")
+    end_to_end["trained_slot_metrics"] = metrics
+    if not (metrics[0]["recall"] > metrics[1]["recall"]
+            and metrics[1]["precision"] >= metrics[0]["precision"]):
+        fail(f"trained slots miss Fig. 6's ordering: {metrics}")
+    check_xnor(x_val, trained[0]["w1p"])
+    entries[f"xnor/B{val_rows}"]["launches"] += n["xnor"][val_rows]
+
+    def trained_replay():
+        return packetpath.run(packetpath.build_parser().parse_args(
+            ["--train", "--packets", str(N), "--strategy", "fused", "--stream"]))
+
+    res, n = counted(trained_replay)
+    if res["wrong_slot"] or res["wrong_verdict"]:
+        fail(f"trained boundary replay: wrong_slot={res['wrong_slot']} "
+             f"wrong_verdict={res['wrong_verdict']}")
+    entries["gather/meta16/actions/K2"]["launches"] += n["fused"].get(
+        "gather/meta16/actions", 0)
+    entries[f"xnor/B{val_rows}"]["launches"] += n["xnor"].get(val_rows, 0)
+    end_to_end["packetpath_trained_fused_K2_mpps"] = res["mpps"]
+
+    # Every regime at one host: played and recorded to a v2 trace, then
+    # loaded and replayed on a fresh runtime built from the trace.
+    trace_dir = os.path.join(ROOT, "build", "traces")
+    os.makedirs(trace_dir, exist_ok=True)
+    dp_row = f"gather/meta16/actions/K{K_DB}/B{DP_BATCH}"
+
+    def regime_rendered(name):
+        wl = workloads.make_workload(name, num_slots=K_DB, num_queues=DP_QUEUES,
+                                     scale=DP_SCALE, hosts=1,
+                                     corpus_root=workloads.SYNTHETIC_CORPUS)
+        return wl, render(list(wl.phases), num_slots=K_DB, seed=0,
+                          payload_pool=wl.payload_pool, num_queues=DP_QUEUES)
+
+    regimes = {}
+    for name in workloads.REGIME_NAMES:
+        wl, rendered = regime_rendered(name)
+
+        def record_run():
+            injector = FaultInjector(wl.fault_plan) if wl.fault_plan else None
+            rt = runtime(True, fault_injector=injector)
+            rec = workloads.record(rt, path=os.path.join(trace_dir, f"{name}.bswt"))
+            t0 = time.perf_counter()
+            reports = play(rec, rendered)
+            play_s = time.perf_counter() - t0
+            return rt, reports, play_s, rec.finish(name=name, seed=0)
+
+        (rt, reports, play_s, st), n = counted(record_run)
+        fused_n = n["fused"].get("gather/meta16/actions", 0)
+        aud, cont = rt.audit_conservation(), rt.control.continuity_audit()
+        if not aud["ok"] or aud["wrong_verdict"] or not cont["ok"] or fused_n < 1:
+            fail(f"regime {name}: conservation {aud['ok']}, wrong_verdict "
+                 f"{aud['wrong_verdict']}, continuity {cont['ok']}, fused launches {fused_n}")
+        loaded = workloads.load(st.path)
+
+        def replay_run():
+            rt2 = workloads.make_runtime(loaded, audit=True, block_b=BLOCK_B)
+            return rt2, workloads.replay(loaded, rt2)
+
+        (rt2, rep), n2 = counted(replay_run)
+        replay_n = n2["fused"].get("gather/meta16/actions", 0)
+        if not (rep["ok"] and rep["digest_ok"] and rt2.telemetry.wrong_verdict == 0
+                and rt2.audit_conservation()["ok"]
+                and rt2.control.continuity_audit()["ok"] and replay_n >= 1):
+            fail(f"regime {name}: replay {rep['mismatches']}, digest_ok {rep['digest_ok']}, "
+                 f"wrong_verdict {rt2.telemetry.wrong_verdict}, fused launches {replay_n}")
+        entries[dp_row]["launches"] += fused_n + replay_n
+        completed = sum(r["completed"] for r in reports)
+        regimes[name] = {
+            "kpps": completed / play_s / 1e3, "packets": completed,
+            "dropped": aud["totals"]["dropped"], "fused_launches": fused_n,
+            "epochs": len(rt.control.log),
+            "rolled_back": cont["commit_modes"]["rollback"],
+            "trace_bytes": st.nbytes}
+        print(f"regime {name}: kpps={regimes[name]['kpps']:.1f} fused_launches={fused_n} "
+              f"epochs={regimes[name]['epochs']} rolled_back={regimes[name]['rolled_back']} "
+              f"trace_bytes={st.nbytes} packets={completed} "
+              f"dropped={aud['totals']['dropped']} replay_digest_ok={rep['digest_ok']}",
+              flush=True)
+    end_to_end["regimes"] = regimes
+
+    # The bounded epoch log: slot-thrash with LOG_CAPACITY records in
+    # memory, the rest spilled to a file and read back.
+    spill = os.path.join(trace_dir, "slot-thrash.bswel")
+    _, rendered = regime_rendered("slot-thrash")
+
+    def bounded_log():
+        rt = runtime(True, log_capacity=LOG_CAPACITY, log_spill=spill)
+        play(rt, rendered)
+        return rt
+
+    rt, n = counted(bounded_log)
+    spilled, cont = load_epoch_spill(spill), rt.control.continuity_audit()
+    if not (len(spilled) == cont["spilled_epochs"] == rt.control.stats()["epochs_spilled"] > 0
+            and len(rt.control.log) == LOG_CAPACITY and cont["ok"]
+            and [d["epoch"] for d in spilled] == list(range(1, len(spilled) + 1))):
+        fail(f"bounded epoch log: {len(spilled)} records read back, continuity {cont}")
+    entries[dp_row]["launches"] += n["fused"].get("gather/meta16/actions", 0)
+    print(f"bounded epoch log: {len(spilled)} epochs spilled, {len(rt.control.log)} "
+          f"in memory, spill {os.path.getsize(spill)} bytes, continuity ok", flush=True)
 
     for e in entries.values():
         if e["launches"] < 1:

@@ -13,6 +13,7 @@ from repro_torch.control.commands import (  # noqa: F401
 )
 from repro_torch.control.plane import (  # noqa: F401
     COMMIT_MODES, ControlPlane, EpochRecord, NonFatalControlError,
+    load_epoch_spill,
 )
 from repro_torch.control.policy import (  # noqa: F401
     POLICIES, DropRateRebalance, LeastDepth, PolicyView, RoutingPolicy,

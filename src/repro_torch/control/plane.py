@@ -18,17 +18,30 @@ Failures that are expected chaos outcomes subclass
 ``NonFatalControlError``: their epoch rolls back and is logged, and
 ``apply_pending`` carries on with the next epoch.
 
-Not ported yet: the bounded log's spill (``log_capacity``, ``spill_path``;
-ROADMAP.md Queue 1 item 6) and the megastep's device deltas (item 8).
+The in-memory log is bounded: ``log_capacity`` evicts the oldest records
+into a compressed spill (``SPILL_MAGIC``, then ``u32 length +
+zlib(MessagePack)`` chunks, the reference's format, written by the port's
+own codec `repro_torch.codec`), each stamped with its closed wrong-verdict
+window first, so slot-thrash regimes (one epoch per tick) run in
+O(capacity) memory while ``continuity_audit`` still proves every spilled
+window was clean.
+
+Not ported yet: the megastep's device deltas (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import struct
 import time
+import zlib
 
+from repro_torch import codec
 from repro_torch.control.commands import (API_VERSION, COMMAND_KINDS, Command,
                                           SwapSlot)
+
+#: Spill-file framing: magic + u8 version, then length-prefixed chunks.
+SPILL_MAGIC = b"BSWELOG1"
 
 #: The only outcomes an epoch may end in.
 COMMIT_MODES = ("atomic", "degraded", "rollback")
@@ -81,15 +94,18 @@ class ControlPlane:
 
     def __init__(self, runtime, *, log_capacity: int | None = None,
                  spill_path: str | None = None):
-        if log_capacity is not None or spill_path is not None:
-            raise NotImplementedError(
-                "a bounded epoch log (log_capacity / log_spill) is not ported "
-                "yet: ROADMAP.md Queue 1 item 6 (spill codec)")
+        if log_capacity is not None and log_capacity < 1:
+            raise ValueError("log_capacity must be >= 1 (or None)")
         self._runtime = runtime
         self._next_epoch = 1
         self._pending: list[EpochRecord] = []
         self._log: list[EpochRecord] = []
+        self._log_capacity = log_capacity
+        self._spill_path = spill_path
+        self._spill_chunks: list[bytes] = []   # when no spill_path is given
+        self._spill_header_written = False
         self.spilled_epochs = 0
+        self._spilled_wrong = 0
         self._mode_counts = {m: 0 for m in COMMIT_MODES}
         # observability tap: called with each EpochRecord as it lands in
         # the log (committed AND rolled-back epochs)
@@ -192,6 +208,45 @@ class ControlPlane:
         if self.on_record is not None:
             self.on_record(rec)
         self._log.append(rec)
+        cap = self._log_capacity
+        if cap is not None and len(self._log) > cap:
+            evicted, self._log = self._log[:-cap], self._log[-cap:]
+            self._spill(evicted)
+
+    def _spill(self, evicted: list[EpochRecord]) -> None:
+        """Close each evicted record's wrong-verdict window (its successor
+        is still known here) and push the batch out as one compressed
+        chunk."""
+        succ = self._log[0] if self._log else None
+        docs = []
+        for i, rec in enumerate(evicted):
+            nxt = evicted[i + 1] if i + 1 < len(evicted) else succ
+            doc = rec.as_dict()
+            window = None
+            if (nxt is not None and rec.wrong_verdict_at_apply is not None
+                    and nxt.wrong_verdict_at_apply is not None):
+                window = nxt.wrong_verdict_at_apply - rec.wrong_verdict_at_apply
+                self._spilled_wrong += window
+            doc["wrong_verdict_in_window"] = window
+            docs.append(doc)
+        self.spilled_epochs += len(docs)
+        blob = zlib.compress(codec.packb(docs), 6)
+        if self._spill_path is None:
+            self._spill_chunks.append(blob)
+            return
+        with open(self._spill_path, "ab" if self._spill_header_written else "wb") as f:
+            if not self._spill_header_written:
+                f.write(SPILL_MAGIC)
+            f.write(struct.pack("<I", len(blob)))
+            f.write(blob)
+        self._spill_header_written = True
+
+    def spilled_records(self) -> list[dict]:
+        """Decode the in-memory spill chunks (oldest first)."""
+        out: list[dict] = []
+        for blob in self._spill_chunks:
+            out.extend(codec.unpackb(zlib.decompress(blob)))
+        return out
 
     # -- observability ------------------------------------------------------
 
@@ -222,13 +277,14 @@ class ControlPlane:
                 "wrong_verdict_in_window": nxt - rec.wrong_verdict_at_apply,
             })
         ok = (wrong_now == 0
-              and all(e["wrong_verdict_in_window"] == 0 for e in epochs))
+              and all(e["wrong_verdict_in_window"] == 0 for e in epochs)
+              and self._spilled_wrong == 0)
         out = {
             "api_version": API_VERSION,
             "epochs": epochs,
             "commit_modes": dict(self._mode_counts),
             "spilled_epochs": self.spilled_epochs,
-            "spilled_wrong_verdict": 0,
+            "spilled_wrong_verdict": self._spilled_wrong,
             "wrong_verdict_total": wrong_now,
             "ok": ok,
         }
@@ -251,3 +307,21 @@ class ControlPlane:
             "commit_modes": dict(self._mode_counts),
             "apply_latency_us_max": max(lat) if lat else None,
         }
+
+
+def load_epoch_spill(path: str) -> list[dict]:
+    """Read a spill file written by a capacity-bounded ``ControlPlane`` (the
+    port's or the reference's) back into epoch dicts (oldest first)."""
+    with open(path, "rb") as f:
+        if f.read(len(SPILL_MAGIC)) != SPILL_MAGIC:
+            raise ValueError(f"not an epoch spill file: {path}")
+        out: list[dict] = []
+        while head := f.read(4):
+            if len(head) != 4:
+                raise ValueError(f"{path}: truncated chunk header")
+            (n,) = struct.unpack("<I", head)
+            blob = f.read(n)
+            if len(blob) != n:
+                raise ValueError(f"{path}: truncated chunk body")
+            out.extend(codec.unpackb(zlib.decompress(blob)))
+        return out

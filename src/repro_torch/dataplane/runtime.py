@@ -29,10 +29,16 @@ because every tick captures the bank/RETA version current at its
 dispatch.  ``audit=True`` re-scores every tick through the exact ``take``
 path against that captured bank and counts mismatches.
 
+A ``fault_injector`` (`repro_torch.dataplane.faults`) is consulted as host
+0: an injected stall spends the tick and serves nothing (pending epochs stay
+queued, rings keep their backlog), and an injected shard error raises
+``InjectedFault`` at the epoch's stage or apply, which rolls the epoch back
+and is logged.  ``log_capacity``/``log_spill`` bound the control plane's
+in-memory epoch log.
+
 Not ported yet, and refused with ``NotImplementedError``: the
-``shard_map`` fan-out (ROADMAP.md Queue 1 item 9), ``megastep_ticks > 1``
-(item 8), ``fault_injector`` (item 9) and the bounded epoch log
-(``log_capacity``/``log_spill``, item 6).
+``shard_map`` fan-out (ROADMAP.md Queue 1 item 9) and ``megastep_ticks > 1``
+(item 8).
 """
 
 from __future__ import annotations
@@ -184,10 +190,6 @@ class DataplaneRuntime:
             raise NotImplementedError(
                 "megastep_ticks > 1 is not ported yet: ROADMAP.md Queue 1 "
                 "item 8 (megastep)")
-        if fault_injector is not None:
-            raise NotImplementedError(
-                "fault_injector is not ported yet: ROADMAP.md Queue 1 item 9 "
-                "(faults)")
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -226,6 +228,7 @@ class DataplaneRuntime:
         self._inflight: collections.deque[_InFlight] = collections.deque()
         self._last_retire_s: float | None = None
         self._tick_count = 0
+        self._faults = fault_injector
         self.control = ControlPlane(self, log_capacity=log_capacity,
                                     spill_path=log_spill)
         self.policy = policy          # initial config, not a mutation
@@ -274,6 +277,7 @@ class DataplaneRuntime:
         """Raise without mutating when ``cmd`` cannot apply to the current
         state.  ``ControlPlane.apply_pending`` validates a whole epoch
         before applying any of it, so a rejected epoch is atomic."""
+        self._fault_check("stage")
         if isinstance(cmd, SwapSlot):
             if not 0 <= int(cmd.slot) < self.num_slots:
                 raise ValueError(f"slot {cmd.slot} out of range")
@@ -304,6 +308,7 @@ class DataplaneRuntime:
     def _apply_command(self, cmd) -> None:
         """Apply ONE control command.  Only ``ControlPlane.apply_pending``
         may call this: it is the single mutation funnel."""
+        self._fault_check("apply")
         if isinstance(cmd, SwapSlot):
             if self._bankbuf is not None:
                 # zero-copy path: make sure the params are staged in the
@@ -322,6 +327,12 @@ class DataplaneRuntime:
             self._install_reta(np.asarray(cmd.reta, np.int32))
         elif not apply_routing_command(self, cmd):
             raise TypeError(f"not a control command: {cmd!r}")
+
+    def _fault_check(self, point: str) -> None:
+        """Consult the armed ``FaultInjector`` (if any) at a stage/apply
+        injection point; a single-host runtime is always host 0."""
+        if self._faults is not None:
+            self._faults.check(point, 0, self._tick_count)
 
     def _control_state(self) -> dict:
         """Snapshot everything epochs mutate (apply-time rollback).  Safe
@@ -493,6 +504,12 @@ class DataplaneRuntime:
         send them to the device in one copy and issue the workers; stage 3
         (retire) runs for the oldest tick once more than
         ``pipeline_depth`` are in flight."""
+        if (self._faults is not None
+                and not self._faults.responsive(0, self._tick_count)):
+            # injected stall: the tick elapses but the host serves
+            # nothing; pending epochs stay queued, rings keep backlog
+            self._tick_count += 1
+            return 0
         self._tick_boundary()
         self._tick_count += 1
         self.telemetry.runtime_ticks += 1

@@ -3,6 +3,7 @@ same NumPy inputs go through the JAX reference and the torch port."""
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.core import executor as jexecutor
@@ -68,3 +69,15 @@ def numpy_bank(bank: dict) -> dict:
 
 def assert_equal(got: torch.Tensor, want) -> None:
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Run a test's torch work on one intra-op thread: the port's CPU work
+    in the parity tests is many small operations, and parallel test workers
+    that each spin a thread per core oversubscribe the machine.  Autouse in
+    every test module that imports it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -284,9 +284,6 @@ def test_epoch_rollback_and_shims():
 @pytest.mark.parametrize("kw,match", [
     (dict(fanout="shard_map"), "item 9"),
     (dict(megastep_ticks=4), "item 8"),
-    (dict(fault_injector=object()), "item 9"),
-    (dict(log_capacity=8), "item 6"),
-    (dict(log_spill="epochs.bin"), "item 6"),
 ])
 def test_unported_options_raise(kw, match):
     bank = texecutor.init_bank(np.random.default_rng(0), 2, CFG, device="cpu")

@@ -1,10 +1,12 @@
-"""The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package; entry points refuse to
+"""The port stands alone: no module of ``repro_torch``, not its quickstart
+and not ``chip_smoke.py`` imports JAX, the JAX package or ``msgpack`` (the
+card's machine lacks it); entry points refuse to
 fall back to the CPU when CUDA is absent; the chip smoke script fails
 without a card or outside the repo; every kernel source is wired to its
 ctypes signature."""
 
 import ast
+import importlib.util
 import os
 import pathlib
 import shutil
@@ -18,10 +20,14 @@ import torch
 from repro_torch.core import bank as tbank
 from repro_torch.core import executor as texecutor
 from repro_torch.kernels import _build
+from repro_torch.dataplane import workloads
 from repro_torch.launch import packetpath
+from repro_torch.train import bnn
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", QUICKSTART]
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
@@ -38,7 +44,7 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 def test_port_imports_neither_jax_nor_reference(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
+        assert top not in ("jax", "jaxlib", "repro", "msgpack"), f"{path.name} imports {name}"
 
 
 @pytest.fixture
@@ -60,6 +66,17 @@ def test_entry_points_raise_without_cuda(no_cuda):
                                     np.zeros((1, 2)), np.zeros(1))
     with pytest.raises(RuntimeError, match="CUDA"):
         packetpath.main(["--packets", "16"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bnn.train_slot_pair(epochs=1, samples_per_group=8)
+    trace = workloads.synthesize(workloads.emergency_phases(2), num_slots=2,
+                                 num_queues=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        workloads.make_runtime(trace)
+    spec = importlib.util.spec_from_file_location("quickstart_torch", QUICKSTART)
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main([])
     # an explicit CPU request is honoured
     assert texecutor.init_bank(rng, 2, device="cpu")["w1p"].device.type == "cpu"
 
