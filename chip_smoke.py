@@ -16,8 +16,11 @@ Phases, in order; any failure raises and exits non-zero:
    * the fused kernel at the paper's H32 width (d = 8192, H = 32, C = 1)
      with K in {2, 16} slots and B = 8192 packets, in gather mode with
      ``meta_words=16`` and actions, in gather mode with ``meta_words=0``,
-     and in contiguous mode, and at the data plane's shape (gather,
-     ``meta_words=16`` with actions, K = 16, B = 2048, ``block_b`` 256);
+     and in contiguous mode, at the data plane's shape (gather,
+     ``meta_words=16`` with actions, K = 16, B = 2048, ``block_b`` 256),
+     and at the megastep window's shape (the same variant over the
+     extended bank of K + 8 = 24 slots, B = 8 ticks x 4 queues x 2048 rows
+     of one window slab, rows grouped by extended slot);
      ``xnor_matmul`` at B in {1, 256, 8192} (the control-plane replay's
      two shapes and ``inference_only``'s) and, in phase 4 once the slots
      are trained, at ``evaluate``'s B = 2048 (the line names the warps per
@@ -82,7 +85,15 @@ Phases, in order; any failure raises and exits non-zero:
      epochs, rolled-back epochs and trace bytes;
    * the bounded epoch log: ``slot-thrash`` (an epoch every storm tick)
      with ``log_capacity=4`` and a spill file under ``build/traces/``,
-     read back by ``load_epoch_spill``.
+     read back by ``load_epoch_spill``;
+   * the megastep: the emergency scenario on the same runtime shape at
+     ``megastep_ticks`` 1, 8 and 64 (``benchmarks_torch/fig8m_megastep.py``'s
+     ``sweep``, best of 3): equal completion-stream digests, zero wrong
+     verdicts, conservation, the engine on for 8 and 64, kpps per phase;
+     then the recorded ``slot-thrash`` trace replayed on
+     ``make_runtime(trace, megastep_ticks=8)`` (epochs inside windows) with
+     the recorded digest.  The window's fused launches count under the
+     window's own row (``fused_forward.launches`` key ``.../window``).
    Every kernel must have been launched in its part, and the LM-width bf16
    ``banked_matmul`` through the ``bf16/wgmma`` kernel; the data plane's
    fused launches (the scenario, the regimes, their replays and the
@@ -91,7 +102,14 @@ Phases, in order; any failure raises and exits non-zero:
    tick at the flash-crowd size (the scenario's runtime, batch 2048 per
    queue, fed one 8192-packet burst per tick): device time by operator and
    the device's idle share, and for the tick the host time of the arrival
-   edge apart from the tick's and the packets served per tick.
+   edge apart from the tick's and the packets served per tick; splits that
+   sequential tick's host time line by line (``split_tick``); and profiles
+   one 8-tick megastep window beside 8 sequential ticks at the same
+   traffic: device time by operator, idle share, device-to-host copies per
+   window (one, the drain's, or it fails), the host time of staging against
+   the flush and the drain, and the window run once with CUDA's sync debug
+   mode set to error (it fails on any host synchronisation before the
+   drain).
 
 Lines printed before the last: the probe's binary-MMA rates (one JSON
 object, ``binary_mma_rates``), the data plane's kpps per phase, the swap
@@ -101,7 +119,9 @@ parts of phase 4 that ran it), error, time, plain-version time, bound and
 library time (and, for ``banked_matmul``, its ``variant``; for
 ``xnor_matmul``, its ``warps``), and a ``launch_floor_ms`` line: the
 device time of one PyTorch kernel on 128 bytes, taken as the kernels'
-times are, against which the B = 1 row reads.  The last line is
+times are, against which the B = 1 row reads; the megastep sweep's kpps
+per phase and window, the tick split and the window profile.  The last
+line is
 ``{"ok": true, "device": {...}}``.
 A kernel's ``ms`` is its device time, from CUDA events around calls queued
 behind a busy-wait kernel; ``library_ms`` is taken the same way;
@@ -141,6 +161,8 @@ CHURN_MODELS = 32
 TRAIN_EPOCHS, TRAIN_SAMPLES = 4, 1024   # bnn.train_slot_pair's defaults
 VAL_SAMPLES = 1024                 # per capture group of the val split
 LOG_CAPACITY = 4                   # the bounded epoch log's in-memory records
+WINDOWS = (1, 8, 64)               # megastep_ticks of the fig8m sweep
+WINDOW_TICKS = 8                   # the profiled window and the phase-3 slab
 CP_PACKETS = 256                   # the control-plane replay's boundary trace
 XNOR_ROWS = (1, CP_PACKETS, N)     # xnor_matmul's row counts on the main paths
 INT_MM_MIN_ROWS = 16               # torch._int_mm takes more rows than this
@@ -232,11 +254,83 @@ def profile_step(step, iters: int = 20, top: int = 8) -> dict:
         "wall_us_per_step": wall_us,
         "device_busy_us_per_step": busy_us,
         "device_idle_share": 1 - busy_us / wall_us,
+        "dtoh_copies_per_step": sum(e.count for e in acts if "DtoH" in e.key) / iters,
+        "htod_copies_per_step": sum(e.count for e in acts if "HtoD" in e.key) / iters,
         "top_device_activities": [
             {"name": e.key[:90], "calls_per_step": e.count / iters,
              "device_us_per_step": e.self_device_time_total / iters}
             for e in acts[:top]],
     }
+
+
+SPLIT_LINES = ("dispatch", "tick boundary", "pop", "pad and stack", "to_device",
+               "packet_step dispatch", "event wait", "result copy", "record_tick",
+               "recorder extends")
+
+
+def split_tick(rt, burst, iters: int = 10) -> dict:
+    """The sequential data-plane tick's host time line by line (ms per
+    tick, host clock): ``rt.dispatch(burst)``, then the body of
+    ``DataplaneRuntime.tick`` with the loop fan-out and of its ``_retire``,
+    each line timed as the runtime runs it; and the packets served per
+    tick, after as many untimed ticks to reach the steady backlog.  ``rt``
+    is a sequential, recording runtime on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.core import packet as pkt, pipeline
+    from repro_torch.dataplane.workloads.phases import SEQ_WORD
+
+    for _ in range(iters):
+        rt.dispatch(burst)
+        rt.tick()
+    acc = dict.fromkeys(SPLIT_LINES, 0.0)
+    served = 0
+    for _ in range(iters):
+        last = [time.perf_counter()]
+
+        def lap(line):
+            now = time.perf_counter()
+            acc[line] += now - last[0]
+            last[0] = now
+
+        rt.dispatch(burst)
+        lap("dispatch")
+        rt._tick_boundary()
+        rt._tick_count += 1
+        rt.telemetry.runtime_ticks += 1
+        lap("tick boundary")
+        popped = [ring.pop(rt.batch) for ring in rt.rings]
+        counts = [rows.shape[0] for rows, _ in popped]
+        live = [q for q in range(rt.num_queues) if counts[q]]
+        lap("pop")
+        stacked = np.stack([rt._pad(popped[q][0]) for q in live])
+        lap("pad and stack")
+        x_all = pkt.to_device(stacked, rt.device)
+        lap("to_device")
+        results = [rt._packed(pipeline.packet_step(rt.bank, x, **rt._step_kwargs()))
+                   for x in x_all]
+        lap("packet_step dispatch")
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        lap("event wait")
+        host = [res[:, :counts[q]].cpu().numpy() for q, res in zip(live, results)]
+        lap("result copy")
+        now = time.perf_counter()
+        for q, h in zip(live, host):
+            rt.telemetry.record_tick(q, h[0], h[1].astype(bool), h[2],
+                                     latency_us=(now - popped[q][1]) * 1e6, tick_s=0.0)
+            rt.rings[q].mark_completed(counts[q])
+        lap("record_tick")
+        for q, h in zip(live, host):
+            rt.completed_seq[q].extend(int(s) for s in popped[q][0][:, SEQ_WORD])
+            rt.completed_verdicts[q].extend(bool(v) for v in h[1].astype(bool))
+            rt.completed_slots[q].extend(int(s) for s in h[0])
+        lap("recorder extends")
+        served += sum(counts)
+    out = {f"{line}_ms": t / iters * 1e3 for line, t in acc.items()}
+    out["packets_served_per_tick"] = served / iters
+    return out
 
 
 def main() -> int:
@@ -246,12 +340,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
+    from benchmarks_torch.fig8m_megastep import sweep
     from repro_torch.control import SlotCache, load_epoch_spill
     from repro_torch.core import bank as bank_lib
     from repro_torch.core import executor, packet as pkt, pipeline, switching
     from repro_torch.data import packets as pk
     from repro_torch.dataplane import (DataplaneRuntime, FaultInjector,
-                                       emergency_phases, play, render, workloads)
+                                       emergency_phases, megastep, play, render,
+                                       workloads)
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import banked_matmul as bm
     from repro_torch.kernels import bnn_xnor, fused_forward as ff
@@ -374,6 +470,17 @@ def main() -> int:
     g_dp = bank_lib.group_by_slot_padded(pkt.slot_of(x_dp, K_DB), K_DB, BLOCK_B)
     fused_cases.append((K_DB, f"/B{DP_BATCH}", banks[K_DB][0], g_dp,
                         "gather/meta16/actions", x_dp, g_dp.row_ids, 16, True))
+    # The megastep window's shape: one (WINDOW_TICKS x 4 queues x batch)
+    # slab over the extended bank (K base slots + EPOCH_CAPACITY swap
+    # deltas), rows grouped by their extended slot.
+    k_ext = K_DB + megastep.EPOCH_CAPACITY
+    rng = np.random.default_rng(k_ext)
+    x_win = packets_for(rng, K_DB, WINDOW_TICKS * DP_QUEUES * DP_BATCH)
+    es_win = torch.from_numpy(rng.integers(0, k_ext, x_win.shape[0])).to(dev)
+    g_win = bank_lib.group_by_slot_padded(es_win, k_ext, BLOCK_B)
+    fused_cases.append((f"{K_DB}+{megastep.EPOCH_CAPACITY}", megastep.WINDOW_TAG,
+                        executor.init_bank(rng, k_ext, device=dev), g_win,
+                        "gather/meta16/actions", x_win, g_win.row_ids, 16, True))
     for k, shape, bank, g, variant, xin, rows, meta, act in fused_cases:
         name = f"fused_forward {variant} K={k}" + (f" B={xin.shape[0]}" if shape else "")
         bank_args = (bank["w1p"], bank["b1"], bank["w2"], bank["b2"])
@@ -747,6 +854,24 @@ def main() -> int:
         m: d["swap_apply_us"] for m, d in dataplane.items()}
     print(json.dumps({"swap_epoch_apply_us": end_to_end["swap_epoch_apply_us"]}))
 
+    # The megastep: the scenario at each window of the fig8m sweep on the
+    # same runtime shape; the sweep raises unless the digests are equal,
+    # wrong verdicts 0, conservation holds and the engine ran for w > 1.
+    win_row = f"gather/meta16/actions/K{K_DB}+{megastep.EPOCH_CAPACITY}{megastep.WINDOW_TAG}"
+    win_key = "gather/meta16/actions" + megastep.WINDOW_TAG
+    swept, n = counted(lambda: sweep(
+        lambda w: runtime(True, megastep_ticks=w), scenario, WINDOWS, reps=3))
+    if n["fused"].get(win_key, 0) < 1:
+        fail(f"megastep sweep: the window's fused launch never ran ({n['fused']})")
+    entries[win_row]["launches"] += n["fused"][win_key]
+    entries[f"gather/meta16/actions/K{K_DB}/B{DP_BATCH}"]["launches"] += \
+        n["fused"].get("gather/meta16/actions", 0)
+    for w, r in swept.items():
+        print(f"megastep window={w}: kpps={r['kpps']:.1f} per phase "
+              + " ".join(f"{p}={v:.1f}" for p, v in r["phase_kpps"].items())
+              + f"; digest {r['digest'][:16]}", flush=True)
+    end_to_end["megastep_kpps"] = {w: r["phase_kpps"] for w, r in swept.items()}
+
     # SlotCache churn: 32 models over the 16 slots, cache operations from a
     # fixed seed between the scenario's bursts.
     model_rng = np.random.default_rng(8)
@@ -940,6 +1065,26 @@ def main() -> int:
     print(f"bounded epoch log: {len(spilled)} epochs spilled, {len(rt.control.log)} "
           f"in memory, spill {os.path.getsize(spill)} bytes, continuity ok", flush=True)
 
+    # The recorded slot-thrash trace (an epoch every storm tick) replayed on
+    # a megastep runtime: epochs land inside windows.
+    thrash = workloads.load(os.path.join(trace_dir, "slot-thrash.bswt"))
+
+    def megastep_replay():
+        rt2 = workloads.make_runtime(thrash, audit=True, block_b=BLOCK_B,
+                                     megastep_ticks=WINDOW_TICKS)
+        return rt2, workloads.replay(thrash, rt2)
+
+    (rt2, rep), n = counted(megastep_replay)
+    if not (rt2._mega is not None and rep["ok"] and rep["digest_ok"]
+            and rt2.telemetry.wrong_verdict == 0 and rt2.audit_conservation()["ok"]
+            and rt2.control.continuity_audit()["ok"] and n["fused"].get(win_key, 0) >= 1):
+        fail(f"slot-thrash megastep replay: {rep['mismatches']}, digest_ok {rep['digest_ok']}, "
+             f"wrong_verdict {rt2.telemetry.wrong_verdict}, launches {n['fused']}")
+    entries[win_row]["launches"] += n["fused"][win_key]
+    print(f"slot-thrash megastep replay (window {WINDOW_TICKS}): digest_ok "
+          f"{rep['digest_ok']}, {len(rt2.control.log)} epochs, "
+          f"{n['fused'][win_key]} window launches", flush=True)
+
     for e in entries.values():
         if e["launches"] < 1:
             fail(f"{e['name']} was not launched on the main path")
@@ -970,6 +1115,67 @@ def main() -> int:
     tick_profile["packets_served_per_tick"] = served / 10
     print(json.dumps({"dataplane_tick_profile": tick_profile}))
     end_to_end["dataplane_tick_device_idle_share"] = tick_profile["device_idle_share"]
+    print(json.dumps({"dataplane_tick_split": split_tick(
+        runtime(True, audit=False, record=True), crowd_burst)}), flush=True)
+
+    # One megastep window of WINDOW_TICKS ticks beside as many sequential
+    # ticks, on the same traffic; each step of the profile is one window.
+    def ticks_of(r):
+        def step():
+            for _ in range(WINDOW_TICKS):
+                r.dispatch(crowd_burst)
+                r.tick()
+        return step
+
+    profiles = {}
+    for w in (1, WINDOW_TICKS):
+        r = runtime(True, audit=False, record=True, megastep_ticks=w)
+        step = ticks_of(r)
+        prof = profile_step(step, iters=5)
+        prof["packets_offered_per_step"] = WINDOW_TICKS * int(crowd_burst.shape[0])
+        if w > 1:
+            if prof["dtoh_copies_per_step"] != 1:
+                fail(f"megastep: {prof['dtoh_copies_per_step']} device-to-host copies "
+                     "per window, not the drain's one")
+            # the host's share of a window: staging (dispatch and tick),
+            # the flush up to the drain, and the drain (its one copy back
+            # waits for the window's device work)
+            acc = {"flush": 0.0, "_drain": 0.0}
+            for name in acc:
+                def timed(*a, _fn=getattr(r._mega, name), _name=name, **kw):
+                    t0 = time.perf_counter()
+                    try:
+                        return _fn(*a, **kw)
+                    finally:
+                        acc[_name] += time.perf_counter() - t0
+                setattr(r._mega, name, timed)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            prof["host_ms_per_window"] = {
+                "staging": (total - acc["flush"]) / 5 * 1e3,
+                "flush_to_drain": (acc["flush"] - acc["_drain"]) / 5 * 1e3,
+                "drain": acc["_drain"] / 5 * 1e3}
+            # any host synchronisation inside the window's device work raises
+            real = megastep._run_window
+
+            def strict(*a, **kw):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return real(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+
+            megastep._run_window = strict
+            try:
+                step()
+            finally:
+                megastep._run_window = real
+            prof["sync_debug_error_window"] = "no host synchronisation"
+        profiles[f"megastep_ticks={w}"] = prof
+    print(json.dumps({"window_profile": profiles}), flush=True)
     print(json.dumps({"end_to_end": end_to_end}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {

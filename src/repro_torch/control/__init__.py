@@ -12,8 +12,9 @@ from repro_torch.control.commands import (  # noqa: F401
     SwapSlot,
 )
 from repro_torch.control.plane import (  # noqa: F401
-    COMMIT_MODES, ControlPlane, EpochRecord, NonFatalControlError,
-    load_epoch_spill,
+    COMMIT_MODES, DELTA_RETA, DELTA_SWAP, ControlPlane, DeviceDelta,
+    EpochRecord, NonFatalControlError, load_epoch_spill,
+    serialize_device_delta,
 )
 from repro_torch.control.policy import (  # noqa: F401
     POLICIES, DropRateRebalance, LeastDepth, PolicyView, RoutingPolicy,

@@ -26,7 +26,9 @@ window first, so slot-thrash regimes (one epoch per tick) run in
 O(capacity) memory while ``continuity_audit`` still proves every spilled
 window was clean.
 
-Not ported yet: the megastep's device deltas (ROADMAP.md Queue 1 item 8).
+In the megastep's deferred mode each applied bank or RETA mutation is also
+serialized as a ``DeviceDelta`` (``serialize_device_delta``) for the
+window's bounded epoch queue.
 """
 
 from __future__ import annotations
@@ -35,10 +37,14 @@ import dataclasses
 import struct
 import time
 import zlib
+from typing import Any
+
+import numpy as np
 
 from repro_torch import codec
 from repro_torch.control.commands import (API_VERSION, COMMAND_KINDS, Command,
-                                          SwapSlot)
+                                          FailQueues, ProgramReta,
+                                          RestoreQueues, SwapSlot)
 
 #: Spill-file framing: magic + u8 version, then length-prefixed chunks.
 SPILL_MAGIC = b"BSWELOG1"
@@ -85,6 +91,55 @@ class EpochRecord:
             "host_ticks": (list(self.host_ticks)
                            if self.host_ticks is not None else None),
         }
+
+
+# -- device-delta serialization (the megastep's epoch queue) -----------------
+
+#: DeviceDelta.kind codes.
+DELTA_SWAP = 1
+DELTA_RETA = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceDelta:
+    """One control command serialized for the megastep's epoch queue.
+
+    An epoch that lands inside a staged window applies eagerly to the host
+    mirrors and is also recorded here in a fixed form: ``step`` is the
+    window step the delta precedes (it is in effect for every row popped
+    at steps >= ``step``, the sequential tick-boundary semantics), and
+    within one step later entries overwrite earlier ones (submission
+    order).  Rolling back a failed epoch truncates the staged list back to
+    its pre-epoch length, so the device never sees a rolled-back epoch.
+    """
+    step: int                    # window step the delta applies before
+    kind: int                    # DELTA_SWAP | DELTA_RETA
+    slot: int = -1               # bank slot (DELTA_SWAP)
+    reta: Any = None             # (reta_size,) int32 (DELTA_RETA)
+    params: Any = None           # one bank slot's params (DELTA_SWAP)
+
+
+def serialize_device_delta(cmd, *, step: int, runtime,
+                           reta_size: int) -> DeviceDelta | None:
+    """Serialize one already applied command into its device delta.
+
+    Called by the runtime's ``_apply_command`` in deferred (megastep) mode
+    after the host mirror mutated: ``SwapSlot`` captures the new slot's
+    params; every RETA-affecting command (``ProgramReta``, ``FailQueues``,
+    ``RestoreQueues``) captures the resulting host table, padded with -1 or
+    truncated to ``reta_size``.  Commands with no device-visible state
+    (``SetPolicy``) return None.
+    """
+    if isinstance(cmd, SwapSlot):
+        return DeviceDelta(step=step, kind=DELTA_SWAP, slot=int(cmd.slot),
+                           params=cmd.params)
+    if isinstance(cmd, (ProgramReta, FailQueues, RestoreQueues)):
+        table = np.asarray(runtime.reta, np.int32)
+        out = np.full(reta_size, -1, np.int32)
+        n = min(reta_size, table.shape[0])
+        out[:n] = table[:n]
+        return DeviceDelta(step=step, kind=DELTA_RETA, reta=out)
+    return None
 
 
 class ControlPlane:

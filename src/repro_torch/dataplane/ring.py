@@ -1,6 +1,5 @@
 """Bounded per-queue packet rings with explicit conservation accounting
-(torch port: the reference's host ring; the device rings of the megastep
-are not ported yet).
+(torch port: the reference's host ring, and the megastep's device rings).
 
 The AF_XDP analogue: each hardware queue drains into a fixed-size UMEM
 fill ring; when producers outrun the consumer the NIC tail-drops and the
@@ -25,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core import packet as pkt
 
@@ -120,3 +120,89 @@ class PacketRing:
     def ok(self) -> bool:
         s = self.conservation()
         return bool(s["producer_ok"] and s["consumer_ok"])
+
+
+# ---------------------------------------------------------------------------
+# Device-resident rings (the megastep's mirror of the host rings)
+# ---------------------------------------------------------------------------
+#
+# Plain torch index ops over a dict of tensors on one device, so a whole
+# window of ring traffic runs on the device with no host synchronisation:
+#
+#     {"buf":  (Q * capacity + 1, words) int32, flattened queue-major, with
+#              one sink row at index Q * capacity,
+#      "head": (Q,) int64,  "size": (Q,) int64}
+#
+# Semantics are those of ``PacketRing``: FIFO within a queue, burst-prefix
+# admission, tail drop when full.  The host ``PacketRing`` stays
+# authoritative for counters and timestamps; these ops reproduce the row
+# content and order it predicts, and the megastep checks the two agree on
+# pop counts at every flush.  Nothing here indexes with a boolean mask (on
+# CUDA that calls ``nonzero`` and waits for the device): rows that are not
+# admitted are written to the sink row instead.
+
+def device_rings(num_queues: int, capacity: int, *,
+                 packet_words: int = pkt.PACKET_WORDS, device=None) -> dict:
+    """Fresh empty device ring state for ``num_queues`` rings."""
+    return {
+        "buf": torch.zeros((num_queues * capacity + 1, packet_words),
+                           dtype=torch.int32, device=device),
+        "head": torch.zeros(num_queues, dtype=torch.int64, device=device),
+        "size": torch.zeros(num_queues, dtype=torch.int64, device=device),
+    }
+
+
+def device_push(rings: dict, rows: torch.Tensor, qids: torch.Tensor, count,
+                *, capacity: int) -> dict:
+    """Push a mixed-queue burst: ``rows[i]`` goes to ring ``qids[i]`` for
+    ``i < count``; per-queue arrival order is burst order; each queue
+    admits ``min(offered, free)`` and tail-drops the rest (``PacketRing.push``
+    run per queue on the burst's subsets).  ``count`` may be a 0-d device
+    tensor.  Writes ``rings["buf"]`` in place; returns the new state."""
+    buf, head, size = rings["buf"], rings["head"], rings["size"]
+    num_queues = head.shape[0]
+    dev = buf.device
+    qids = qids.to(torch.int64)
+    valid = torch.arange(rows.shape[0], device=dev) < count
+    # (Q, bmax): the scan runs along the contiguous axis, which CUDA scans
+    # fast; a scan down the burst axis of a (bmax, Q) tensor is a slow kernel
+    onehot = ((qids[None, :] == torch.arange(num_queues, device=dev)[:, None])
+              & valid[None, :]).to(torch.int64)
+    # rank of row i within its queue's subset of this burst
+    rank = torch.cumsum(onehot, dim=1) - 1
+    ri = torch.gather(rank, 0, qids[None, :])[0]
+    offered = onehot.sum(dim=1)
+    free = capacity - size
+    admit = valid & (ri < free[qids])
+    dest = (head[qids] + size[qids] + ri) % capacity
+    sink = num_queues * capacity
+    buf.index_copy_(0, torch.where(admit, qids * capacity + dest, sink),
+                    rows)
+    size = size + torch.minimum(offered, free.clamp_min(0))
+    return {"buf": buf, "head": head, "size": size}
+
+
+def device_pop(rings: dict, batch, width: int, *, capacity: int):
+    """Pop up to ``batch`` rows FIFO from every ring and compact them
+    queue-major into one ``(width, words)`` batch with no per-queue padding:
+    row ``p`` is row ``p - offset[q]`` of queue ``q``'s pop, where ``q`` is
+    the queue whose range covers ``p``.
+
+    Returns ``(rings', popped, qq, pvalid, n)``: ``qq`` the per-row queue
+    id, ``pvalid`` the compaction's validity mask and ``n`` the (Q,)
+    per-queue pop counts.  ``width`` must be at least the total popped (the
+    caller sizes it from the host mirror); ``batch`` may be a 0-d device
+    tensor (the megastep pops 0 on padded steps)."""
+    buf, head, size = rings["buf"], rings["head"], rings["size"]
+    num_queues = head.shape[0]
+    dev = buf.device
+    n = torch.minimum(size, torch.as_tensor(batch, device=dev))
+    csum = torch.cumsum(n, dim=0)
+    off = csum - n                                          # exclusive
+    pos = torch.arange(width, device=dev)
+    qq = torch.searchsorted(csum, pos, right=True).clamp(0, num_queues - 1)
+    pvalid = pos < csum[-1]
+    rk = torch.where(pvalid, pos - off[qq], 0)
+    popped = buf[qq * capacity + (head[qq] + rk) % capacity]
+    out = {"buf": buf, "head": (head + n) % capacity, "size": size - n}
+    return out, popped, qq, pvalid, n

@@ -36,9 +36,19 @@ queued, rings keep their backlog), and an injected shard error raises
 and is logged.  ``log_capacity``/``log_spill`` bound the control plane's
 in-memory epoch log.
 
+``megastep_ticks > 1`` turns on deferred mode (`repro_torch.dataplane.
+megastep`): ``dispatch``/``tick`` stage their work and run the host ring
+simulation, and each window of N ticks is served on the device by one
+fused launch, drained once.  It needs the fused strategy, the ``cuda`` or
+``ref`` backend and no fault injector; every other configuration keeps the
+sequential loop, with the same verdicts and telemetry totals.
+
+Host taps (they must treat their arguments as read-only and stay cheap):
+``on_retire(queue, rows, slots, verdicts, actions, tick)`` for every
+retired queue batch, ``on_drop(queue, rows)`` for dispatch-edge tail drops.
+
 Not ported yet, and refused with ``NotImplementedError``: the
-``shard_map`` fan-out (ROADMAP.md Queue 1 item 9) and ``megastep_ticks > 1``
-(item 8).
+``shard_map`` fan-out (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ from repro_torch.control import (ControlPlane, FailQueues, ProgramReta,
 from repro_torch.control import policy as policy_mod
 from repro_torch.core import bank as bank_lib, packet as pkt, pipeline
 from repro_torch.dataplane import rss
+from repro_torch.dataplane.megastep import MegastepEngine
 from repro_torch.dataplane.ring import PacketRing
 from repro_torch.dataplane.telemetry import Telemetry
 from repro_torch.dataplane.workloads.phases import SEQ_WORD
@@ -184,12 +195,8 @@ class DataplaneRuntime:
             raise NotImplementedError(
                 "fanout='shard_map' is not ported yet: ROADMAP.md Queue 1 "
                 "item 9 (mesh)")
-        if megastep_ticks != 1:
-            if megastep_ticks < 1:
-                raise ValueError("megastep_ticks must be >= 1")
-            raise NotImplementedError(
-                "megastep_ticks > 1 is not ported yet: ROADMAP.md Queue 1 "
-                "item 8 (megastep)")
+        if megastep_ticks < 1:
+            raise ValueError("megastep_ticks must be >= 1")
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -221,6 +228,11 @@ class DataplaneRuntime:
         self.completed_verdicts = [[] for _ in range(self.num_queues)]
         self.completed_slots = [[] for _ in range(self.num_queues)]
         self.dropped_seq: list[int] = []
+        # host taps:
+        #   on_retire(queue, rows, slots, verdicts, actions, tick)
+        #   on_drop(queue, rows)   (dispatch-edge tail drops)
+        self.on_retire = None
+        self.on_drop = None
         self._t_start: float | None = None
         if pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
@@ -239,6 +251,17 @@ class DataplaneRuntime:
         if fanout not in ("loop", "vmap"):
             raise ValueError(f"unknown fanout {fanout!r}")
         self.fanout = fanout
+        self.megastep_ticks = int(megastep_ticks)
+        # Deferred (megastep) mode: a window of N ticks runs on the device
+        # in one fused launch at flush.  Fault injection needs per-tick host
+        # control, and the window replicates the fused strategy on the
+        # kernel or its plain version; every other configuration keeps the
+        # sequential loop.
+        self._mega = None
+        if (self.megastep_ticks > 1 and fault_injector is None
+                and strategy == "fused"
+                and ops.resolve(backend, self.bank["b1"]) in ("cuda", "ref")):
+            self._mega = MegastepEngine(self)
 
     # -- workers --------------------------------------------------------------
 
@@ -327,6 +350,10 @@ class DataplaneRuntime:
             self._install_reta(np.asarray(cmd.reta, np.int32))
         elif not apply_routing_command(self, cmd):
             raise TypeError(f"not a control command: {cmd!r}")
+        if self._mega is not None:
+            # deferred mode: the host mirror just mutated; serialize the
+            # same mutation into the window's epoch queue
+            self._mega.stage_delta(cmd)
 
     def _fault_check(self, point: str) -> None:
         """Consult the armed ``FaultInjector`` (if any) at a stage/apply
@@ -345,7 +372,9 @@ class DataplaneRuntime:
                     slot_swaps=self.telemetry.slot_swaps,
                     reta_updates=self.telemetry.reta_updates,
                     bankswap=(self._bankbuf.mark()
-                              if self._bankbuf is not None else None))
+                              if self._bankbuf is not None else None),
+                    mega=(self._mega.delta_mark()
+                          if self._mega is not None else None))
 
     def _rollback_control_state(self, s: dict) -> None:
         if self._bankbuf is not None and s.get("bankswap") is not None:
@@ -360,6 +389,8 @@ class DataplaneRuntime:
         self.bucket_load = s["bucket_load"]
         self.telemetry.slot_swaps = s["slot_swaps"]
         self.telemetry.reta_updates = s["reta_updates"]
+        if self._mega is not None and s.get("mega") is not None:
+            self._mega.delta_rollback(s["mega"])
 
     def _prestage_epoch(self, rec) -> None:
         """Submit-time hook (``ControlPlane.submit``): stage the epoch's
@@ -400,6 +431,19 @@ class DataplaneRuntime:
         else:
             self.bank = bank
 
+    def bank_pin(self):
+        """Pin the current active bank buffer (for holders that outlive the
+        next epoch, e.g. an open megastep window): staging then copies
+        instead of writing it.  Returns a handle for ``bank_unpin``; None
+        without double buffering (nothing is written in place then)."""
+        return (self._bankbuf.pin_active()
+                if self._bankbuf is not None else None)
+
+    def bank_unpin(self, handle) -> None:
+        """Release a ``bank_pin`` handle."""
+        if handle is not None and self._bankbuf is not None:
+            self._bankbuf.unpin(handle)
+
     def _install_reta(self, reta: np.ndarray) -> None:
         reta = np.asarray(reta, np.int32)
         if reta.min() < 0 or reta.max() >= self.num_queues:
@@ -413,9 +457,20 @@ class DataplaneRuntime:
         """Apply queued epochs at a fully quiescent boundary: in-flight
         ticks retire first, so each epoch's wrong-verdict snapshot has
         absorbed every pre-epoch tick, and no in-flight tick reads the
-        buffer a commit demotes to shadow."""
+        buffer a commit demotes to shadow.
+
+        In deferred (megastep) mode epochs do not force a flush: they apply
+        eagerly to the host mirrors and their serialized deltas land
+        mid-window at the matching step (the window's bank is pinned).  The
+        window flushes early only when the epoch batch would overflow the
+        bounded delta queue.  Each epoch's ``wrong_verdict_at_apply`` is
+        then the value as of the last flush."""
         if self.control.has_pending:
-            self.retire_all()
+            if self._mega is not None:
+                self._mega.prepare_epochs(
+                    sum(len(r.commands) for r in self.control.pending))
+            else:
+                self.retire_all()
             self.control.apply_pending(self._tick_count)
 
     def _tick_boundary(self) -> None:
@@ -482,10 +537,16 @@ class DataplaneRuntime:
             if self._record and admitted < rows.shape[0]:
                 self.dropped_seq.extend(
                     int(s) for s in rows[admitted:, SEQ_WORD])
+            if self.on_drop is not None and admitted < rows.shape[0]:
+                self.on_drop(i, rows[admitted:])
             self.telemetry.record_drops(i, int(rows.shape[0]) - admitted)
             per_queue.append({"offered": int(rows.shape[0]),
                               "admitted": admitted,
                               "dropped": int(rows.shape[0]) - admitted})
+        if self._mega is not None:
+            # deferred mode: the host rings above stay authoritative; the
+            # device replays the identical admission at flush
+            self._mega.stage_burst(packets_np, q)
         return {"per_queue": per_queue,
                 "dropped": sum(p["dropped"] for p in per_queue)}
 
@@ -513,6 +574,10 @@ class DataplaneRuntime:
         self._tick_boundary()
         self._tick_count += 1
         self.telemetry.runtime_ticks += 1
+        if self._mega is not None:
+            # deferred mode: pop the host mirror now, serve on the device
+            # at flush (``pipeline_depth`` is superseded by the window)
+            return self._mega.stage_tick()
         popped = [ring.pop(self.batch) for ring in self.rings]
         counts = [rows.shape[0] for rows, _ in popped]
         total = sum(counts)
@@ -561,6 +626,8 @@ class DataplaneRuntime:
             rows, ts = rec.popped[q]
             host = res[:, :n].cpu().numpy()
             slots, verdicts, actions = host[0], host[1].astype(bool), host[2]
+            if self.on_retire is not None:
+                self.on_retire(q, rows, slots, verdicts, actions, rec.tick)
             self.telemetry.record_tick(
                 q, slots, verdicts, actions,
                 latency_us=(now - ts) * 1e6,
@@ -587,7 +654,10 @@ class DataplaneRuntime:
                 depths=[len(r) for r in self.rings])
 
     def retire_all(self) -> None:
-        """Flush the pipeline: retire every in-flight tick (oldest first)."""
+        """Flush the pipeline: retire every in-flight tick (oldest first).
+        In deferred mode this is the megastep flush point."""
+        if self._mega is not None:
+            self._mega.flush()
         while self._inflight:
             self._retire(self._inflight.popleft())
         if self.telemetry.has_sink:
@@ -596,10 +666,14 @@ class DataplaneRuntime:
             self.telemetry.emit_delta(tick=self._tick_count)
 
     def in_flight_rows(self) -> list[int]:
-        """Rows popped but not yet retired, per queue."""
+        """Rows popped but not yet retired, per queue: in-flight ticks, plus
+        the staged-but-unflushed megastep window in deferred mode."""
         out = [0] * self.num_queues
         for rec in self._inflight:
             for q, n in enumerate(rec.counts):
+                out[q] += n
+        if self._mega is not None:
+            for q, n in enumerate(self._mega.staged_rows()):
                 out[q] += n
         return out
 

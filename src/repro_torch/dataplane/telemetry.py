@@ -71,6 +71,26 @@ class QueueTelemetry:
             self.latency_sum_us += float(latency_us.sum())
             self.latency_max_us = max(self.latency_max_us, float(latency_us.max()))
 
+    def record_bulk(self, *, ticks: int, completed: int, per_slot_total,
+                    per_slot_malicious, actions, latency_us,
+                    busy_s: float) -> None:
+        """Fold a whole megastep window of device-accumulated counters in
+        one call: totals equal those of ``ticks`` sequential ``record``
+        calls; only the wall-clock attribution (``busy_s``, latencies)
+        differs, measured at flush granularity."""
+        latency_us = np.asarray(latency_us, np.float64)
+        self.ticks += int(ticks)
+        self.completed += int(completed)
+        self.busy_s += busy_s
+        self.per_slot_total += np.asarray(per_slot_total, np.int64)
+        self.per_slot_malicious += np.asarray(per_slot_malicious, np.int64)
+        self.actions += np.asarray(actions, np.int64)
+        if latency_us.size:
+            self.latency_hist += np.histogram(latency_us, LATENCY_EDGES_US)[0]
+            self.latency_sum_us += float(latency_us.sum())
+            self.latency_max_us = max(self.latency_max_us,
+                                      float(latency_us.max()))
+
     def latency_quantile_us(self, q: float) -> float:
         """Histogram-resolution quantile (upper bucket edge)."""
         total = int(self.latency_hist.sum())
@@ -146,6 +166,10 @@ class Telemetry:
     def record_tick(self, queue: int, slots, verdicts, actions,
                     latency_us, tick_s: float) -> None:
         self.queues[queue].record(slots, verdicts, actions, latency_us, tick_s)
+
+    def record_window(self, queue: int, **kw) -> None:
+        """Bulk-fold one queue's megastep window (``QueueTelemetry.record_bulk``)."""
+        self.queues[queue].record_bulk(**kw)
 
     def record_drops(self, queue: int, count: int, now: float | None = None) -> None:
         """Charge ``count`` ring-edge drops to ``queue``."""

@@ -21,7 +21,9 @@ copy).
 
 ``fused_forward`` launches the kernel on CUDA tensors and runs the plain
 version ``fused_forward_ref`` on CPU tensors.  ``fused_forward.launches``
-counts launches per variant (``variant``).
+counts launches per variant (``variant``), followed by the caller's
+``tag`` where a caller counts its launches apart (the megastep's window
+passes ``"/window"``).
 
 The reg0 constants mirror ``repro_torch.core.packet`` so the kernels
 package stays core-free; ``repro_torch.core.pipeline`` asserts they agree.
@@ -116,6 +118,7 @@ def fused_forward(
     block_b: int = 256,
     meta_words: int = 0,
     with_actions: bool = False,
+    tag: str = "",
 ):
     """One-launch fused forwarding path.
 
@@ -159,7 +162,7 @@ def fused_forward(
             _build.launch("fused_forward", *ptrs, slots.shape[0], block_b,
                           x.shape[0], x.stride(0), meta_words, w_words, h, c,
                           k, stream)
-        fused_forward.launches[variant(row_ids, meta_words, with_actions)] += 1
+        fused_forward.launches[variant(row_ids, meta_words, with_actions) + tag] += 1
     return (scores, actions) if with_actions else scores
 
 

@@ -100,21 +100,25 @@ def bnn_forward_fused(bank, x_packed, block_slots, row_ids=None, *,
 
 def packet_forward_fused(bank, packets, block_slots, row_ids, *,
                          meta_words: int, block_b: int = 256,
-                         backend: str = "auto"):
+                         backend: str = "auto", tag: str = ""):
     """Whole forwarding path in one launch: parse + select + BNN + Pi.
 
     ``packets`` are raw (B, meta_words + W) int32 rows in arrival order.
     Returns ``(n_rows, C) f32, (n_rows,) int32``.  A 3-D ``packets`` of
-    shape (Q, B, words) is the queue-major stacked form: ``row_ids`` index
-    the flattened (Q * B) batch and all queues share one launch.
+    shape (Q, B, words) (or the megastep's (T, width, words) window slab)
+    is flattened: ``row_ids`` index the flattened batch and every row
+    shares one launch.  ``tag`` suffixes the kernel's launch-count key.
     """
-    fwd = _fused.fused_forward if resolve(backend, packets) == "cuda" \
-        else _fused.fused_forward_ref
     packets = packets.reshape(-1, packets.shape[-1])
+    kw = dict(block_b=block_b, meta_words=meta_words, with_actions=True)
+    if resolve(backend, packets) == "cuda":
+        fwd = _fused.fused_forward
+        kw["tag"] = tag
+    else:
+        fwd = _fused.fused_forward_ref
     scores, actions = fwd(
         packets, bank["w1p"], bank["b1"], bank["w2"], bank["b2"],
-        block_slots, row_ids, block_b=block_b, meta_words=meta_words,
-        with_actions=True)
+        block_slots, row_ids, **kw)
     return scores, actions[:, 0]
 
 

@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import CPU, assert_equal, banks, numpy_bank
+from _torch_parity import (  # noqa: F401
+    CPU, assert_equal, banks, numpy_bank, one_torch_thread)
 from repro.core import bank as jbank
 from repro.core import executor as jexecutor
 from repro_torch.core import bank as tbank

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import CPU, assert_equal, assert_scores, banks, packets, to_t, words
+from _torch_parity import (  # noqa: F401
+    CPU, assert_equal, assert_scores, banks, packets, to_t, words,
+    one_torch_thread)
 from repro.core import executor as jexecutor
 from repro.kernels import banked_matmul as jbm
 from repro.kernels import fused_forward as jff

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import CPU
+from _torch_parity import CPU, one_torch_thread  # noqa: F401
 from repro.core import executor as jexecutor
 from repro.dataplane import DataplaneRuntime as JRuntime
 from repro.dataplane import PacketRing as JRing
@@ -283,7 +283,6 @@ def test_epoch_rollback_and_shims():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(fanout="shard_map"), "item 9"),
-    (dict(megastep_ticks=4), "item 8"),
 ])
 def test_unported_options_raise(kw, match):
     bank = texecutor.init_bank(np.random.default_rng(0), 2, CFG, device="cpu")

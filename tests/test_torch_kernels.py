@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_equal, assert_scores, banks, packets, to_t, words
+from _torch_parity import (  # noqa: F401
+    assert_equal, assert_scores, banks, packets, to_t, words, one_torch_thread)
 from repro.core import bank as jbank
 from repro.core import executor as jexecutor
 from repro.kernels import bnn_xnor as jxnor

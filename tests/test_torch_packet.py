@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_equal, to_t, words
+from _torch_parity import (  # noqa: F401
+    assert_equal, to_t, words, one_torch_thread)
 from repro.core import packet as jpkt
 from repro.data import packets as jdata
 from repro.kernels import fused_forward as jff

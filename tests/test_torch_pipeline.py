@@ -8,8 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_parity import (assert_equal, assert_scores, banks, numpy_bank, packets,
-                           to_t, words)
+from _torch_parity import (  # noqa: F401
+    assert_equal, assert_scores, banks, numpy_bank, packets, to_t, words,
+    one_torch_thread)
 from repro.core import executor as jexecutor
 from repro.core import pipeline as jpipe
 from repro_torch.core import bank as tbank

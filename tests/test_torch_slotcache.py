@@ -10,7 +10,7 @@ import jax
 import numpy as np
 import pytest
 
-from _torch_parity import CPU
+from _torch_parity import CPU, one_torch_thread  # noqa: F401
 from repro import control as jcontrol
 from repro.core import executor as jexecutor
 from repro.dataplane import DataplaneRuntime as JRuntime

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, not its quickstart
-and not ``chip_smoke.py`` imports JAX, the JAX package or ``msgpack`` (the
-card's machine lacks it); entry points refuse to
+"""The port stands alone: no module of ``repro_torch``, not its quickstart,
+not ``chip_smoke.py`` and no script of ``benchmarks_torch`` imports JAX, the
+JAX package or ``msgpack`` (the card's machine lacks it); entry points refuse to
 fall back to the CPU when CUDA is absent; the chip smoke script fails
 without a card or outside the repo; every kernel source is wired to its
 ctypes signature."""
@@ -26,8 +26,10 @@ from repro_torch.train import bnn
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
+FIG8M = ROOT / "benchmarks_torch" / "fig8m_megastep.py"
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", QUICKSTART]
+    ROOT / "chip_smoke.py", QUICKSTART] + sorted(
+    (ROOT / "benchmarks_torch").glob("*.py"))
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
@@ -72,11 +74,12 @@ def test_entry_points_raise_without_cuda(no_cuda):
                                  num_queues=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         workloads.make_runtime(trace)
-    spec = importlib.util.spec_from_file_location("quickstart_torch", QUICKSTART)
-    quickstart = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(quickstart)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        quickstart.main([])
+    for path in (QUICKSTART, FIG8M):
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(script)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            script.main([])
     # an explicit CPU request is honoured
     assert texecutor.init_bank(rng, 2, device="cpu")["w1p"].device.type == "cpu"
 

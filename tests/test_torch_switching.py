@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_parity import banks, words
+from _torch_parity import banks, words, one_torch_thread  # noqa: F401
 from repro.core import pipeline as jpipe
 from repro.core import switching as jsw
 from repro_torch.core import bank as tbank
