@@ -93,7 +93,26 @@ Phases, in order; any failure raises and exits non-zero:
      then the recorded ``slot-thrash`` trace replayed on
      ``make_runtime(trace, megastep_ticks=8)`` (epochs inside windows) with
      the recorded digest.  The window's fused launches count under the
-     window's own row (``fused_forward.launches`` key ``.../window``).
+     window's own row (``fused_forward.launches`` key ``.../window``);
+   * the mesh (``run_mesh_phase``), every shard on the card, the runtime's
+     shape (4 queues per host, batch 2048, ``block_b`` 256, ring 16384,
+     fused, audit on) on the emergency scenario: (a) ``MeshDataplane(
+     hosts=1)`` against the flip-commit ``DataplaneRuntime`` above, record
+     on, mismatch 0; (b) hosts 2 and 4 beside one host of 8 and 16 queues
+     (the same global queue count), kpps per phase, conservation per host
+     and in total, zero wrong verdicts, every applied epoch's
+     ``host_ticks`` equal; (c) the four regimes that change shape at 2
+     hosts (``MESH_REGIMES``, ``scale=16``, record on) recorded to
+     ``build/traces/mesh-*.bswt`` and replayed from the file on
+     ``make_runtime``'s mesh (digest, zero wrong verdicts, conservation,
+     continuity; stranded packets, degraded commits, failover and restore
+     epochs printed); (d) 2 hosts in megastep mode at windows 1 and 8 with
+     equal digests, and one device-to-host copy per shard per window of
+     steady traffic; (e) ``fig10_mesh.epoch_broadcast``'s ``apply_us`` per
+     command kind, 2 hosts against 1; (f) ``fanout="shard_map"`` over the
+     visible devices equal to ``vmap``.  The mesh's sequential launches
+     count under the B = 2048 row, its windows under the window's row, and
+     the stacked fan-out's (Q x 2048 = 8192 rows) under the K = 16 row;
    Every kernel must have been launched in its part, and the LM-width bf16
    ``banked_matmul`` through the ``bf16/wgmma`` kernel; the data plane's
    fused launches (the scenario, the regimes, their replays and the
@@ -109,7 +128,13 @@ Phases, in order; any failure raises and exits non-zero:
    window (one, the drain's, or it fails), the host time of staging against
    the flush and the drain, and the window run once with CUDA's sync debug
    mode set to error (it fails on any host synchronisation before the
-   drain).
+   drain); then (g) one flash-crowd mesh tick at 2 hosts (audit and record
+   off): wall, device busy, idle share and the top device operations;
+6. runs each paper-figure benchmark of ``benchmarks_torch`` once at its
+   reference shapes (``fig4_runtime``, ``fig5_scaling``,
+   ``fig6_slot_behavior``, ``fig7_fused``, ``table4_continuity``,
+   ``table5_controlplane``; ``PAPER_FIGURES``) and prints every number it
+   reports as one ``paper_figures`` JSON object.
 
 Lines printed before the last: the probe's binary-MMA rates (one JSON
 object, ``binary_mma_rates``), the data plane's kpps per phase, the swap
@@ -120,8 +145,9 @@ library time (and, for ``banked_matmul``, its ``variant``; for
 ``xnor_matmul``, its ``warps``), and a ``launch_floor_ms`` line: the
 device time of one PyTorch kernel on 128 bytes, taken as the kernels'
 times are, against which the B = 1 row reads; the megastep sweep's kpps
-per phase and window, the tick split and the window profile.  The last
-line is
+per phase and window, the tick split and the window profile; the mesh's
+lines (a to f), ``mesh_epoch_apply_us``, ``mesh_tick_profile`` and
+``paper_figures``.  The last line is
 ``{"ok": true, "device": {...}}``.
 A kernel's ``ms`` is its device time, from CUDA events around calls queued
 behind a busy-wait kernel; ``library_ms`` is taken the same way;
@@ -331,6 +357,229 @@ def split_tick(rt, burst, iters: int = 10) -> dict:
     out = {f"{line}_ms": t / iters * 1e3 for line, t in acc.items()}
     out["packets_served_per_tick"] = served / iters
     return out
+
+
+MESH_HOSTS = (2, 4)                # hosts of the mesh sweep, DP_QUEUES each
+MESH_PROFILE_HOSTS = 2
+MESH_REGIMES = ("cascading-failover", "chaos-host-failover", "barrier-straggler",
+                "crash-mid-commit")
+PAPER_FIGURES = ("fig4_runtime", "fig5_scaling", "fig6_slot_behavior", "fig7_fused",
+                 "table4_continuity", "table5_controlplane")
+
+
+def run_mesh_phase(*, counted, entries, dev, bank, scenario, single, trace_dir,
+                   dp_row, win_row, win_key, out) -> dict:
+    """The mesh's part of phase 4 (a to f of the module docstring), each run
+    with the launch counts set to 0 around it; its fused launches count
+    under the case rows of their shapes.  Fills ``out`` and returns a
+    factory of the phase's meshes (``"new"``) for the profile."""
+    import numpy as np
+    from benchmarks_torch import fig10_mesh
+    from repro_torch.dataplane import (DataplaneRuntime, FaultInjector, MeshDataplane,
+                                       play, render, workloads)
+
+    seq_key = "gather/meta16/actions"
+    launched = out.setdefault("fused_launches", {})
+
+    def add(row, n):
+        """Count ``n`` of the mesh's launches under the kernel line's ``row``."""
+        entries[row]["launches"] += n
+        launched[row] = launched.get(row, 0) + n
+
+    def new(hosts, qph=DP_QUEUES, **kw):
+        kw = dict(dict(num_queues=qph, batch=DP_BATCH, block_b=BLOCK_B,
+                       ring_capacity=DP_RING, strategy="fused", audit=True), **kw)
+        return MeshDataplane(bank, hosts=hosts, device=dev, **kw)
+
+    def check(label, mesh):
+        aud, cont = mesh.audit_conservation(), mesh.control.continuity_audit()
+        t = aud["totals"]
+        gap = (t["offered"] - t["completed"] - t["dropped"] - t["occupancy"]
+               - t["in_flight"])
+        if not (aud["ok"] and all(h["ok"] for h in aud.get("per_host", ()))
+                and gap == 0 and aud["wrong_verdict"] == 0 and cont["ok"]):
+            fail(f"mesh {label}: conservation {aud['ok']} (gap {gap}), wrong_verdict "
+                 f"{aud['wrong_verdict']}, continuity {cont['ok']}")
+        if isinstance(mesh, MeshDataplane) and not mesh.health.ever_missed:
+            stamps = [b["host_ticks"] for b in mesh.barrier_log]
+            if any(len(set(s)) != 1 for s in stamps):
+                fail(f"mesh {label}: unequal barrier stamps {stamps}")
+        return aud
+
+    def played(mesh_fn):
+        def run():
+            mesh = mesh_fn()
+            t0 = time.perf_counter()
+            reports = play(mesh, scenario)
+            return mesh, reports, time.perf_counter() - t0
+        return run
+
+    # a. one host against the single-host runtime (record and audit on)
+    (m1, _, _), n = counted(played(lambda: new(1, record=True)))
+    mismatch = sum((m1.completed_seq != single["streams"][0],
+                    m1.completed_verdicts != single["streams"][1],
+                    m1.completed_slots != single["streams"][2],
+                    m1.dropped_seq != single["dropped"],
+                    not np.array_equal(m1.reta, single["reta"])))
+    check("hosts=1", m1)
+    add(dp_row, n["fused"].get(seq_key, 0))
+    print(f"mesh hosts=1 against DataplaneRuntime: mismatch={mismatch}", flush=True)
+    if mismatch:
+        fail(f"mesh hosts=1: {mismatch} streams differ from DataplaneRuntime")
+    out["hosts1_mismatch"] = mismatch
+
+    # b. hosts 2 and 4 at DP_QUEUES queues each, beside one host with the
+    # same global queue count
+    sweep = {}
+    for hosts in MESH_HOSTS:
+        for h, q in ((1, hosts * DP_QUEUES), (hosts, DP_QUEUES)):
+            (mesh, reports, dt), n = counted(played(lambda: new(h, q)))
+            aud = check(f"h{h}q{q}", mesh)
+            launches = n["fused"].get(seq_key, 0)
+            if launches < 1:
+                fail(f"mesh h{h}q{q}: the fused kernel was not launched")
+            add(dp_row, launches)
+            applied = [r for r in mesh.control.log if r.applied]
+            if any(len(set(r.host_ticks)) != 1 for r in applied):
+                fail(f"mesh h{h}q{q}: an applied epoch's host_ticks differ")
+            sweep[f"h{h}q{q}"] = {
+                "kpps": aud["totals"]["completed"] / dt / 1e3,
+                "phase_kpps": {r["phase"]: r["kpps"] for r in reports},
+                "fused_launches": launches, "epochs": len(applied)}
+            print(f"mesh hosts={h} queues/host={q}: kpps="
+                  f"{sweep[f'h{h}q{q}']['kpps']:.1f} per phase "
+                  + " ".join(f"{r['phase']}={r['kpps']:.1f}" for r in reports)
+                  + f"; fused launches={launches}; totals={aud['totals']}", flush=True)
+    out["sweep"] = sweep
+
+    # c. the four mesh regimes at 2 hosts: recorded, replayed from the file
+    regimes = {}
+    for name in MESH_REGIMES:
+        wl = workloads.make_workload(name, num_slots=K_DB, num_queues=DP_QUEUES,
+                                     scale=DP_SCALE, hosts=2)
+        rendered = render(list(wl.phases), num_slots=K_DB, seed=0,
+                          num_queues=2 * DP_QUEUES)
+        path = os.path.join(trace_dir, f"mesh-{name}.bswt")
+
+        def record_run():
+            injector = FaultInjector(wl.fault_plan) if wl.fault_plan else None
+            mesh = new(2, record=True, fault_injector=injector)
+            rec = workloads.record(mesh, path=path)
+            t0 = time.perf_counter()
+            reports = play(rec, rendered)
+            dt = time.perf_counter() - t0
+            return mesh, reports, dt, rec.finish(name=name, seed=0)
+
+        (mesh, reports, dt, st), n = counted(record_run)
+        check(f"regime {name}", mesh)
+        loaded = workloads.load(st.path)
+
+        def replay_run():
+            rt2 = workloads.make_runtime(loaded, audit=True, block_b=BLOCK_B,
+                                         device=dev)
+            return rt2, workloads.replay(loaded, rt2)
+
+        (rt2, rep), n2 = counted(replay_run)
+        if not (isinstance(rt2, MeshDataplane) and rep["ok"] and rep["digest_ok"]):
+            fail(f"mesh regime {name}: replay {rep['mismatches']}, digest_ok "
+                 f"{rep['digest_ok']}, runtime {type(rt2).__name__}")
+        aud2 = check(f"regime {name} replay", rt2)
+        launches = n["fused"].get(seq_key, 0) + n2["fused"].get(seq_key, 0)
+        if launches < 2:
+            fail(f"mesh regime {name}: {launches} fused launches")
+        add(dp_row, launches)
+        completed = sum(r["completed"] for r in reports)
+        regimes[name] = {
+            "kpps": completed / dt / 1e3, "stranded": aud2["stranded"]["packets"],
+            "stranded_hosts": aud2["stranded"]["hosts"],
+            "degraded_commits": rt2.telemetry.degraded_commits,
+            "failover_epochs": len(rt2.failover_epochs),
+            "restore_epochs": len(rt2.restore_epochs), "trace_bytes": st.nbytes}
+        print(f"mesh regime {name}: kpps={regimes[name]['kpps']:.1f} "
+              f"stranded={regimes[name]['stranded']} "
+              f"degraded_commits={regimes[name]['degraded_commits']} "
+              f"failover_epochs={regimes[name]['failover_epochs']} "
+              f"restore_epochs={regimes[name]['restore_epochs']} "
+              f"trace_bytes={st.nbytes} replay_digest_ok={rep['digest_ok']}", flush=True)
+    out["regimes"] = regimes
+
+    # d. 2 hosts in megastep mode, windows 1 and 8: equal digests, and one
+    # device-to-host copy per shard per window
+    digests = {}
+    for w in (1, WINDOW_TICKS):
+        (mesh, _, _), n = counted(played(lambda: new(2, record=True, megastep_ticks=w)))
+        check(f"megastep window={w}", mesh)
+        if (w > 1) != all(s._mega is not None for s in mesh.shards):
+            fail(f"mesh megastep window={w}: engines {[s._mega for s in mesh.shards]}")
+        digests[w] = workloads.digest(mesh)["sha256"]
+        if w > 1:
+            if n["fused"].get(win_key, 0) < 1:
+                fail(f"mesh megastep: no window launch ({n['fused']})")
+            add(win_row, n["fused"][win_key])
+        add(dp_row, n["fused"].get(seq_key, 0))
+    if len(set(digests.values())) != 1:
+        fail(f"mesh megastep: digests differ across windows {digests}")
+    mw = new(2, audit=False, megastep_ticks=WINDOW_TICKS)
+    steady = scenario.bursts[0][0]
+
+    def window():
+        for _ in range(WINDOW_TICKS):
+            mw.dispatch(steady)
+            mw.tick()
+
+    wprof = profile_step(window, iters=5)
+    if wprof["dtoh_copies_per_step"] != 2:
+        fail(f"mesh megastep: {wprof['dtoh_copies_per_step']} device-to-host copies "
+             "per window over 2 shards, not one per shard")
+    out["megastep"] = {"digest_equal": True, "window_profile": wprof}
+    print(f"mesh megastep hosts=2 windows 1 and {WINDOW_TICKS}: digests equal; "
+          f"{wprof['dtoh_copies_per_step']} device-to-host copies per window",
+          flush=True)
+
+    # e. fig10's epoch broadcast: apply_us per command kind, 2 hosts against 1
+    out["epoch_apply_us"] = fig10_mesh.epoch_broadcast(
+        bank, dev, num_queues=DP_QUEUES, batch=DP_BATCH, block_b=BLOCK_B,
+        ring_capacity=DP_RING)
+    print(json.dumps({"mesh_epoch_apply_us": out["epoch_apply_us"]}), flush=True)
+
+    # f. the shard_map fan-out on the card's devices equals vmap
+    streams = {}
+    for fanout in ("vmap", "shard_map"):
+        def fan_run():
+            rt = DataplaneRuntime(bank, num_queues=DP_QUEUES, batch=DP_BATCH,
+                                  block_b=BLOCK_B, ring_capacity=DP_RING,
+                                  strategy="fused", audit=True, record=True,
+                                  fanout=fanout, device=dev)
+            play(rt, scenario)
+            return rt
+        rt, n = counted(fan_run)
+        check(f"fanout={fanout}", rt)
+        streams[fanout] = (rt.completed_seq, rt.completed_verdicts,
+                           rt.completed_slots, rt.dropped_seq)
+        launches = n["fused"].get(seq_key, 0)
+        if launches < 1:
+            fail(f"fanout={fanout}: the fused kernel was not launched")
+        add(f"{seq_key}/K{K_DB}", launches)
+    if streams["vmap"] != streams["shard_map"]:
+        fail("fanout=shard_map differs from vmap")
+    out["shard_map_equals_vmap"] = True
+    print(f"fanout=shard_map over {len(rt._groups)} device(s) equals vmap", flush=True)
+    print(json.dumps({"mesh_fused_launches": launched}), flush=True)
+    return {"new": new}
+
+
+def run_paper_figures(dev) -> dict:
+    """Each paper-figure benchmark of ``benchmarks_torch`` run once at its
+    reference shapes; every number it reports, by name."""
+    import importlib
+
+    numbers = {}
+    for name in PAPER_FIGURES:
+        mod = importlib.import_module(f"benchmarks_torch.{name}")
+        t0 = time.perf_counter()
+        mod.run(dev, lambda key, value, note="": numbers.__setitem__(key, value))
+        numbers[f"{name}.wall_s"] = time.perf_counter() - t0
+    return numbers
 
 
 def main() -> int:
@@ -838,6 +1087,7 @@ def main() -> int:
             fail(f"data plane (flip): {flips} flips for one swap epoch")
         dataplane[mode] = {
             "streams": (rt.completed_seq, rt.completed_verdicts, rt.completed_slots),
+            "dropped": list(rt.dropped_seq), "reta": rt.reta.copy(),
             "kpps": {r["phase"]: r["kpps"] for r in reports},
             "swap_apply_us": swaps[0]["apply_us"],
             "totals": aud["totals"], "fused_launches": fused_n, "flips": flips}
@@ -1085,6 +1335,15 @@ def main() -> int:
           f"{rep['digest_ok']}, {len(rt2.control.log)} epochs, "
           f"{n['fused'][win_key]} window launches", flush=True)
 
+    # The mesh: MeshDataplane shards, each serving through the fused kernel
+    # (gather, meta16, actions, B = DP_BATCH per queue), on the one card.
+    mesh_out = {}
+    mesh_runs = run_mesh_phase(
+        counted=counted, entries=entries, dev=dev, bank=front, scenario=scenario,
+        single=dataplane["flip"], trace_dir=trace_dir, dp_row=dp_row,
+        win_row=win_row, win_key=win_key, out=mesh_out)
+    end_to_end["mesh"] = mesh_out
+
     for e in entries.values():
         if e["launches"] < 1:
             fail(f"{e['name']} was not launched on the main path")
@@ -1176,6 +1435,17 @@ def main() -> int:
             prof["sync_debug_error_window"] = "no host synchronisation"
         profiles[f"megastep_ticks={w}"] = prof
     print(json.dumps({"window_profile": profiles}), flush=True)
+
+    # g. one flash-crowd mesh tick at 2 hosts (audit and record off)
+    m2 = mesh_runs["new"](MESH_PROFILE_HOSTS, audit=False)
+    mesh_profile = profile_step(lambda: (m2.dispatch(crowd_burst), m2.tick()))
+    mesh_profile["hosts"] = MESH_PROFILE_HOSTS
+    mesh_profile["packets_offered_per_tick"] = int(crowd_burst.shape[0])
+    print(json.dumps({"mesh_tick_profile": mesh_profile}), flush=True)
+    end_to_end["mesh_tick_device_idle_share"] = mesh_profile["device_idle_share"]
+
+    # The paper's figures on the port, each benchmark run once.
+    print(json.dumps({"paper_figures": run_paper_figures(dev)}), flush=True)
     print(json.dumps({"end_to_end": end_to_end}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {

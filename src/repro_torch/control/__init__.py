@@ -3,13 +3,17 @@
 ``commands`` defines the five typed mutations, ``plane`` batches them into
 atomic, epoch-stamped transactions applied only at tick boundaries and
 keeps the auditable command log, ``policy`` closes the loop from telemetry
-back to ``ProgramReta`` epochs, and ``slotcache`` scales model residency
+back to ``ProgramReta`` epochs, ``health`` keeps the mesh's per-host
+leases, and ``slotcache`` scales model residency
 past the device slot count with LRU eviction and a prefetcher.
 """
 
 from repro_torch.control.commands import (  # noqa: F401
     API_VERSION, Command, FailQueues, ProgramReta, RestoreQueues, SetPolicy,
     SwapSlot,
+)
+from repro_torch.control.health import (  # noqa: F401
+    HealthMonitor, HostState, Transition,
 )
 from repro_torch.control.plane import (  # noqa: F401
     COMMIT_MODES, DELTA_RETA, DELTA_SWAP, ControlPlane, DeviceDelta,

@@ -347,6 +347,9 @@ class ControlPlane:
         if cons_fn is not None:
             cons = cons_fn()
             out["conservation_ok"] = bool(cons["ok"])
+            if "stranded" in cons:
+                # a mesh's packets parked on dead hosts
+                out["stranded"] = cons["stranded"]
             out["ok"] = ok and bool(cons["ok"])
         return out
 

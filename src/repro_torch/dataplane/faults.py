@@ -6,13 +6,13 @@ case and the INSIGHT survey names fault tolerance as the open gap for
 in-network AI.  This module makes those failures *first-class inputs*:
 a ``FaultPlan`` is a typed, serializable schedule of faults, and a
 ``FaultInjector`` fires them at **named injection points** inside
-`repro_torch.dataplane.runtime.DataplaneRuntime` — deterministically, so a
-faulted run records and replays bit-exactly (the plan rides along in
-trace metadata).  The port's runtime is single-host (host 0): it consults
-the ``tick`` point (an injected stall spends the tick and serves nothing)
-and the ``stage``/``apply`` points; the host-loss classes act only on the
-reference's multi-host mesh, which the port has not yet (ROADMAP.md Queue
-1 item 9), and plans and their JSON form are shared with it.
+`repro_torch.dataplane.runtime.DataplaneRuntime` and
+`repro_torch.dataplane.mesh.MeshDataplane` — deterministically, so a
+faulted run records and replays bit-exactly (the plan rides along in trace
+metadata).  The single-host runtime is host 0 and consults the ``tick``,
+``stage`` and ``apply`` points; the mesh consults every point for every
+host, and only there do crashes, lost acks and delayed retires act.  Plans
+and their JSON form are shared with the reference.
 
 Fault vocabulary (one frozen dataclass per class):
 

@@ -163,3 +163,73 @@ def queue_of(
     reta = np.asarray(reta, np.int32)
     h = toeplitz_hash(flow_words_of(packets), key)
     return reta[bucket_index(h, len(reta))]
+
+
+# ---------------------------------------------------------------------------
+# mesh (multi-host) RETA: buckets resolve to (host, queue) pairs
+# ---------------------------------------------------------------------------
+#
+# A mesh RETA entry is a *global queue id* ``gid = host * Q + queue`` in
+# host-major order.  Because the global id space is just a larger queue id
+# space, every single-host RETA operation (round-robin default, affinity-
+# preserving failover, bucket indexing) applies verbatim — the 1-host mesh
+# table IS the single-host table, bit for bit, and cross-host failover
+# inherits the exact never-remap-a-survivor guarantee of the single-host
+# rewrite.
+
+
+def global_queue_id(host, queue, num_queues: int):
+    """(host, queue) -> global queue id, host-major."""
+    return np.asarray(host, np.int64) * int(num_queues) + np.asarray(queue)
+
+
+def split_host_queue(gids, num_queues: int):
+    """Global queue ids -> (host, queue); inverse of ``global_queue_id``."""
+    g = np.asarray(gids, np.int64)
+    return g // int(num_queues), g % int(num_queues)
+
+
+def mesh_indirection_table(
+    num_hosts: int, num_queues: int, size: int = RETA_SIZE
+) -> np.ndarray:
+    """Default mesh RETA: round-robin buckets over host-major global ids.
+
+    ``num_hosts=1`` degenerates to ``indirection_table(num_queues)``
+    bit-for-bit — single-host is the 1-host mesh, not a special case.
+    """
+    if num_hosts < 1:
+        raise ValueError("need at least one host")
+    return indirection_table(num_hosts * num_queues, size)
+
+
+def mesh_failover_table(
+    reta: np.ndarray,
+    failed_global: tuple[int, ...],
+    *,
+    num_hosts: int,
+    num_queues: int,
+) -> np.ndarray:
+    """Remap mesh RETA buckets off dead (host, queue) pairs onto survivors.
+
+    ``failed_global`` names dead pairs by global id (a whole dead host is
+    its ``num_queues`` consecutive ids).  Buckets whose pair survives keep
+    their exact global id — so a flow whose (host, queue) both survive is
+    never remapped, exactly the single-host guarantee lifted to the mesh.
+    """
+    return failover_table(reta, tuple(failed_global),
+                          num_queues=num_hosts * num_queues)
+
+
+def mesh_queue_of(
+    packets: np.ndarray,
+    num_hosts: int,
+    num_queues: int,
+    *,
+    key: bytes = DEFAULT_KEY,
+    reta: np.ndarray | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Full mesh dispatch: flow tuple -> hash -> mesh RETA -> (host, queue)."""
+    if reta is None:
+        reta = mesh_indirection_table(num_hosts, num_queues)
+    gids = queue_of(packets, num_hosts * num_queues, key=key, reta=reta)
+    return split_host_queue(gids, num_queues)

@@ -19,6 +19,12 @@ Fan-out modes (``fanout=``):
 * ``vmap`` — the queue batches stacked to (Q, B, 272) and served by ONE
   call over all of them: ``packet_forward_fused``'s queue-major path for
   the fused strategy, ``packet_step`` on the flattened batch otherwise;
+* ``shard_map`` — the ``vmap`` call with the stacked batch split into
+  contiguous groups of queues, one group per device of
+  `repro_torch.launch.mesh.make_queue_mesh` (``mesh_devices``, default the
+  visible CUDA devices, or the runtime's own CPU device); each device holds
+  one copy of the bank, made again only when the bank version changes.  On
+  one device it is the ``vmap`` path itself;
 * ``auto`` — ``loop`` for the fused/grouped strategies, ``vmap`` else.
 
 Each tick sends its rows to the device once, records a CUDA event after
@@ -47,8 +53,10 @@ Host taps (they must treat their arguments as read-only and stay cheap):
 ``on_retire(queue, rows, slots, verdicts, actions, tick)`` for every
 retired queue batch, ``on_drop(queue, rows)`` for dispatch-edge tail drops.
 
-Not ported yet, and refused with ``NotImplementedError``: the
-``shard_map`` fan-out (ROADMAP.md Queue 1 item 9).
+The runtime is one host.  `repro_torch.dataplane.mesh.MeshDataplane` puts
+several of them behind one facade: it hashes each burst once and hands every
+shard its resolved local queue ids (``dispatch(..., queues=)``), and drives
+their epochs through its own two-phase barrier.
 """
 
 from __future__ import annotations
@@ -71,11 +79,18 @@ from repro_torch.dataplane.telemetry import Telemetry
 from repro_torch.dataplane.workloads.phases import SEQ_WORD
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
 
 _LOOP_STRATEGIES = ("fused", "grouped", "grouped_staged")
 
 _DEPRECATION = ("%s() is a deprecation shim: submit a %s command through "
                 "runtime.control.submit(...) instead")
+
+
+def queue_mesh(num_queues: int, devices=None):
+    """Alias of `repro_torch.launch.mesh.make_queue_mesh`, the one place
+    the queue layout over devices is decided."""
+    return mesh_lib.make_queue_mesh(num_queues, devices)
 
 
 def apply_routing_command(rt, cmd) -> bool:
@@ -102,15 +117,17 @@ def apply_routing_command(rt, cmd) -> bool:
     return True
 
 
-def consult_policy(rt) -> None:
-    """Tick-boundary policy consultation: freeze a view of the runtime's
-    queue pressure and submit any proposal as an ordinary ``ProgramReta``
-    epoch (effective at the *next* boundary)."""
+def consult_policy(rt, *, num_hosts: int = 1) -> None:
+    """Tick-boundary policy consultation, shared by the single-host runtime
+    and the mesh facade: freeze a view of the runtime's queue pressure and
+    submit any proposal as an ordinary ``ProgramReta`` epoch (effective at
+    the *next* boundary)."""
     if rt.policy is None:
         return
     view = policy_mod.PolicyView(
         tick=rt._tick_count,
         num_queues=rt.num_queues,
+        num_hosts=num_hosts,
         reta=rt.reta.copy(),
         queue_depth=np.array([len(r) for r in rt.rings], np.int64),
         queue_dropped=np.array(
@@ -190,11 +207,8 @@ class DataplaneRuntime:
         log_spill: str | None = None,
         double_buffer: bool = True,
         device=None,
+        mesh_devices=None,
     ):
-        if fanout == "shard_map":
-            raise NotImplementedError(
-                "fanout='shard_map' is not ported yet: ROADMAP.md Queue 1 "
-                "item 9 (mesh)")
         if megastep_ticks < 1:
             raise ValueError("megastep_ticks must be >= 1")
         dev = resolve_device(device)
@@ -203,6 +217,7 @@ class DataplaneRuntime:
         if any(leaf.device != dev for leaf in bank.values()):
             raise ValueError(f"the bank must be on the runtime's device {dev}")
         self.device = dev
+        self._bank_version = 0
         self.bank = bank
         self.num_queues = int(num_queues)
         self.num_slots = bank_lib.bank_size(bank)
@@ -248,9 +263,21 @@ class DataplaneRuntime:
         self.bucket_load = np.zeros(len(self.reta), np.int64)
         if fanout == "auto":
             fanout = "loop" if strategy in _LOOP_STRATEGIES else "vmap"
-        if fanout not in ("loop", "vmap"):
+        if fanout not in ("loop", "vmap", "shard_map"):
             raise ValueError(f"unknown fanout {fanout!r}")
         self.fanout = fanout
+        # shard_map: contiguous queue groups, one per mesh device, each
+        # device with its own bank copy (cached per bank version)
+        self._groups: list[tuple[torch.device, int, int]] = []
+        self._dev_banks: dict = {}
+        if fanout == "shard_map":
+            devices, _ = mesh_lib.make_queue_mesh(
+                self.num_queues,
+                mesh_devices if mesh_devices is not None
+                else (None if dev.type == "cuda" else [dev]))
+            per = self.num_queues // len(devices)
+            self._groups = [(d, i * per, (i + 1) * per)
+                            for i, d in enumerate(devices)]
         self.megastep_ticks = int(megastep_ticks)
         # Deferred (megastep) mode: a window of N ticks runs on the device
         # in one fused launch at flush.  Fault injection needs per-tick host
@@ -262,6 +289,16 @@ class DataplaneRuntime:
                 and strategy == "fused"
                 and ops.resolve(backend, self.bank["b1"]) in ("cuda", "ref")):
             self._mega = MegastepEngine(self)
+
+    @property
+    def bank(self):
+        """The live bank version (read-only between tick boundaries)."""
+        return self._bank
+
+    @bank.setter
+    def bank(self, bank) -> None:
+        self._bank = bank
+        self._bank_version += 1
 
     # -- workers --------------------------------------------------------------
 
@@ -285,6 +322,31 @@ class DataplaneRuntime:
         scores = scores_pad[rows, 0]
         return pipeline.PacketResult(slots, scores, scores > 0.0,
                                      actions_pad[rows])
+
+    def _device_bank(self, dev: torch.device):
+        """The current bank on ``dev``: one copy per device, made again only
+        when the bank version changes."""
+        if dev == self.device:
+            return self.bank
+        hit = self._dev_banks.get(dev)
+        if hit is None or hit[0] != self._bank_version:
+            hit = (self._bank_version,
+                   {k: v.to(dev) for k, v in self.bank.items()})
+            self._dev_banks[dev] = hit
+        return hit[1]
+
+    def _fanout_step(self, x3: torch.Tensor) -> torch.Tensor:
+        """The stacked fan-out (``vmap``/``shard_map``) as packed (3, Q * B)
+        results on the runtime's device.  ``shard_map`` on the runtime's
+        one device is the ``vmap`` call itself; otherwise each contiguous
+        queue group runs the same call on its device."""
+        if not self._groups or (len(self._groups) == 1
+                                and self._groups[0][0] == self.device):
+            return self._packed(self._stacked_step(self.bank, x3))
+        return torch.cat([
+            self._packed(self._stacked_step(
+                self._device_bank(d), x3[lo:hi].to(d))).to(self.device)
+            for d, lo, hi in self._groups], dim=1)
 
     @staticmethod
     def _packed(res: pipeline.PacketResult) -> torch.Tensor:
@@ -515,20 +577,35 @@ class DataplaneRuntime:
 
     # -- data plane ---------------------------------------------------------
 
-    def dispatch(self, packets_np: np.ndarray, now: float | None = None) -> dict:
+    def dispatch(self, packets_np: np.ndarray, now: float | None = None,
+                 *, queues: np.ndarray | None = None) -> dict:
         """RSS-dispatch one arrival burst of (n, 272) uint32 rows into the
         per-queue rings.  The arrival edge is a tick boundary: queued
-        control epochs become effective before routing."""
+        control epochs become effective before routing.
+
+        ``queues`` is an optional precomputed per-packet queue id array:
+        the mesh resolves (host, queue) from ONE mesh-level hash and hands
+        each shard its local ids, so the burst is never hashed twice.  The
+        caller then owns the per-bucket load count."""
         self._apply_control()
         if self._t_start is None:
             self._t_start = time.perf_counter()
         if now is None:
             now = time.perf_counter()
         packets_np = np.asarray(packets_np)
-        h = rss.toeplitz_hash(rss.flow_words_of(packets_np), self.rss_key)
-        bucket = rss.bucket_index(h, len(self.reta)).astype(np.int64)
-        self.bucket_load += np.bincount(bucket, minlength=len(self.reta))
-        q = self.reta[bucket]
+        if queues is None:
+            h = rss.toeplitz_hash(rss.flow_words_of(packets_np), self.rss_key)
+            bucket = rss.bucket_index(h, len(self.reta)).astype(np.int64)
+            self.bucket_load += np.bincount(bucket, minlength=len(self.reta))
+            q = self.reta[bucket]
+        else:
+            q = np.asarray(queues, np.int64)
+            if q.size and not (0 <= q.min() and q.max() < self.num_queues):
+                # a global id handed to a shard would otherwise match no
+                # ring and vanish without tripping the conservation audit
+                raise ValueError(
+                    f"precomputed queue ids out of range for "
+                    f"{self.num_queues} queues")
         self.telemetry.touch(now)
         per_queue = []
         for i, ring in enumerate(self.rings):
@@ -594,7 +671,7 @@ class DataplaneRuntime:
         else:
             x_all = pkt.to_device(
                 np.stack([self._pad(rows) for rows, _ in popped]), self.device)
-            res = self._packed(self._stacked_step(self.bank, x_all))
+            res = self._fanout_step(x_all)
             b = self.batch
             x = {q: x_all[q] for q in live}
             results = {q: res[:, q * b:(q + 1) * b] for q in live}

@@ -41,13 +41,14 @@ reference draws both from ``jax.random`` keys.  A synthesized trace
 therefore replays to the same digest in both packages only when the
 caller passes both the same bank and the same ``swap_delivery``.
 
-``record()``/``TraceRecorder`` capture from a live single-host runtime by
-wrapping it in a same-API facade; ``replay()`` feeds a trace back through
-a runtime and verifies the invariants.  Policy rebalances and injected
-failovers are not recorded: they regenerate from ``meta["policy"]`` and
-``meta["fault_plan"]``.  Traces of more than one host need the mesh data
-plane, which the port has not yet (ROADMAP.md Queue 1 item 9):
-``make_runtime`` and ``record`` refuse them.
+``record()``/``TraceRecorder`` capture from a live runtime, single-host
+or mesh, by wrapping it in a same-API facade; ``replay()`` feeds a trace
+back through a runtime and verifies the invariants.  Policy rebalances and
+the failover/restore epochs the mesh's health layer synthesizes are not
+recorded: they regenerate from ``meta["policy"]``, ``meta["fault_plan"]``
+and (on a mesh) ``meta["lease_ticks"]``/``meta["quorum"]``.  A trace of
+more than one host rebuilds as a `repro_torch.dataplane.mesh.MeshDataplane`
+(``make_runtime``).
 """
 
 from __future__ import annotations
@@ -142,11 +143,30 @@ def _tree_of(leaves, device) -> dict:
     return bank_lib.from_jax_bank(dict(zip(BANK_LEAVES, leaves)), device)
 
 
-def _check_single_host(hosts: int) -> None:
-    if hosts > 1:
-        raise NotImplementedError(
-            f"a trace of {hosts} hosts needs the mesh data plane, which is not "
-            "ported yet: ROADMAP.md Queue 1 item 9 (mesh)")
+# ---------------------------------------------------------------------------
+# runtime introspection helpers (single-host runtime and mesh facade)
+# ---------------------------------------------------------------------------
+
+def _template(rt):
+    """The runtime itself, or a mesh's first shard (every shard has the
+    same shape and bank)."""
+    return rt.shards[0] if hasattr(rt, "shards") else rt
+
+
+def _bank_of(rt):
+    return _template(rt).bank
+
+
+def _set_bank(rt, bank) -> None:
+    """Install the recorded initial bank before replay starts (set-up, not
+    a runtime mutation: no packets are in flight).  Every shard of a mesh
+    copies it through ``adopt_bank``."""
+    for t in (rt.shards if hasattr(rt, "shards") else [rt]):
+        t.adopt_bank(bank)
+
+
+def _records(rt) -> bool:
+    return bool(_template(rt)._record)
 
 
 def _policy_name(policy) -> str | None:
@@ -169,19 +189,27 @@ def runtime_meta(rt) -> dict:
     reconstruct for bit-exactness).  The policy and an armed fault plan
     are part of it: their epochs are not in the recorded command timeline
     but regenerate from the replaying runtime's own policy and injector."""
+    t = _template(rt)
     injector = getattr(rt, "_faults", None)
-    return {
-        "hosts": 1,
-        "queues_per_host": rt.num_queues,
-        "num_slots": rt.num_slots,
-        "strategy": rt.strategy,
-        "batch": rt.batch,
-        "ring_capacity": rt.rings[0].capacity,
-        "pipeline_depth": rt.pipeline_depth,
+    meta = {
+        "hosts": getattr(rt, "hosts", 1),
+        "queues_per_host": getattr(rt, "num_queues_per_host", rt.num_queues),
+        "num_slots": t.num_slots,
+        "strategy": t.strategy,
+        "batch": t.batch,
+        "ring_capacity": t.rings[0].capacity,
+        "pipeline_depth": t.pipeline_depth,
+        # a mesh holds its policy at facade scope
         "policy": _policy_name(getattr(rt, "policy", None)),
         "fault_plan": (injector.plan.to_dict()
                        if injector is not None else None),
     }
+    if hasattr(rt, "lease_ticks"):
+        # the lease and quorum drive the mesh's failure detection, whose
+        # synthesized epochs regenerate at replay
+        meta["lease_ticks"] = rt.lease_ticks
+        meta["quorum"] = rt.quorum
+    return meta
 
 
 def digest(rt) -> dict:
@@ -286,7 +314,7 @@ class StreamedTrace:
 
 
 class TraceRecorder:
-    """Same-API facade over a single-host runtime that records the step
+    """Same-API facade over a runtime (or mesh) that records the step
     stream flowing through it.  Drive it with ``play`` or any custom loop,
     then ``finish()`` the trace:
 
@@ -308,10 +336,9 @@ class TraceRecorder:
 
     def __init__(self, runtime, *, path: str | None = None,
                  chunk_bytes: int = CHUNK_BYTES):
-        _check_single_host(getattr(runtime, "hosts", 1))
         self._rt = runtime
         self.steps: list[dict] = []
-        self._bank0 = _leaves_of(runtime.bank)
+        self._bank0 = _leaves_of(_bank_of(runtime))
         self._writer = (_ChunkWriter(path, chunk_bytes=chunk_bytes)
                         if path is not None else None)
         self._stream_packets = 0
@@ -329,10 +356,10 @@ class TraceRecorder:
 
     # -- recorded data-plane surface ----------------------------------------
 
-    def dispatch(self, packets_np, now=None):
+    def dispatch(self, packets_np, now=None, **kw):
         self._log({"kind": "burst",
                    "rows": np.array(packets_np, np.uint32, copy=True)})
-        return self._rt.dispatch(packets_np, now=now)
+        return self._rt.dispatch(packets_np, now=now, **kw)
 
     def tick(self):
         self._log({"kind": "tick"})
@@ -371,7 +398,7 @@ class TraceRecorder:
                              ("offered", "completed", "dropped")}}
         expect["totals"]["wrong_verdict"] = int(
             self._rt.telemetry.wrong_verdict)
-        if self._rt._record:
+        if _records(self._rt):
             expect["digest"] = digest(self._rt)
         meta = {"version": TRACE_VERSION, "name": name, "seed": seed,
                 "kind": "recorded", **runtime_meta(self._rt)}
@@ -429,13 +456,15 @@ def make_runtime(trace: WorkloadTrace, *, bank=None, audit: bool = False,
     recorded initial bank when the trace carries one (else ``bank``, else a
     bank drawn from ``np.random.default_rng(meta["seed"])``), the recorded
     policy and fault plan, and ``record=True`` so the digest is checkable.
-    ``device=None`` means ``bank``'s device when a bank is given, else
-    CUDA."""
+    A trace of more than one host gives a
+    `repro_torch.dataplane.mesh.MeshDataplane` with the recorded lease and
+    quorum.  ``device=None`` means ``bank``'s device when a bank is given,
+    else CUDA."""
+    from repro_torch.dataplane.mesh import MeshDataplane
     from repro_torch.dataplane.runtime import DataplaneRuntime
 
     meta = trace.meta
     hosts = int(meta.get("hosts", 1))
-    _check_single_host(hosts)
     if device is None and bank is not None:
         dev = next(iter(bank.values())).device
     else:
@@ -456,9 +485,16 @@ def make_runtime(trace: WorkloadTrace, *, bank=None, audit: bool = False,
     if meta.get("fault_plan") is not None:
         kw["fault_injector"] = faults_mod.FaultInjector(
             faults_mod.FaultPlan.from_dict(meta["fault_plan"]))
+    if hosts > 1:
+        if meta.get("lease_ticks") is not None:
+            kw["lease_ticks"] = int(meta["lease_ticks"])
+        if meta.get("quorum") is not None:
+            kw["quorum"] = int(meta["quorum"])
     kw.update(overrides)
     queues = int(meta.get("queues_per_host")
                  or meta.get("num_queues", 4) // hosts)
+    if hosts > 1:
+        return MeshDataplane(bank, hosts=hosts, num_queues=queues, **kw)
     return DataplaneRuntime(bank, num_queues=queues, **kw)
 
 
@@ -480,7 +516,7 @@ def replay(
     them.
     """
     if install_bank and trace.bank_leaves is not None:
-        runtime.adopt_bank(restore_bank(trace, runtime.bank))
+        _set_bank(runtime, restore_bank(trace, _bank_of(runtime)))
     mismatches: list[str] = []
     phases: list[dict] = []
     prev_totals: dict | None = None
@@ -528,7 +564,7 @@ def replay(
     check("totals", trace.expect.get("totals"), got_totals)
 
     dig, dig_ok = None, None
-    if runtime._record:
+    if _records(runtime):
         dig = digest(runtime)
         want = trace.expect.get("digest")
         if want is not None:

@@ -81,3 +81,31 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# Wall-clock fields of epoch records, never compared across packages.
+TIME_FIELDS = ("apply_latency_us", "apply_us")
+
+
+def untimed(log):
+    """Epoch records without their wall-clock fields."""
+    return [{k: v for k, v in e.items() if k not in TIME_FIELDS} for e in log]
+
+
+def mesh_state(mesh) -> dict:
+    """Everything a mesh run decides, for equality across packages:
+    completion streams, drops, RETA, conservation, the epoch log and its
+    barrier stamps, health, fault events and the mesh counters."""
+    snap = mesh.snapshot()
+    return dict(
+        seq=mesh.completed_seq, verdicts=mesh.completed_verdicts,
+        slots=mesh.completed_slots, dropped=mesh.dropped_seq,
+        reta=np.asarray(mesh.reta).tolist(), failed=sorted(mesh.failed_queues),
+        audit=mesh.audit_conservation(), log=untimed(mesh.control.command_log()),
+        continuity=mesh.control.continuity_audit(), barrier=mesh.barrier_log,
+        health=mesh.health.snapshot(), events=snap["fault_events"],
+        counters=(mesh.telemetry.slot_swaps, mesh.telemetry.reta_updates,
+                  mesh.telemetry.degraded_commits, mesh.telemetry.wrong_verdict),
+        failover=list(mesh.failover_epochs), restore=list(mesh.restore_epochs),
+        shard_ticks=[s._tick_count for s in mesh.shards],
+        completed_total=snap["completed_total"])

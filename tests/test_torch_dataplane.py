@@ -281,13 +281,24 @@ def test_epoch_rollback_and_shims():
         "atomic": 2, "degraded": 0, "rollback": 2}
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(fanout="shard_map"), "item 9"),
-])
-def test_unported_options_raise(kw, match):
-    bank = texecutor.init_bank(np.random.default_rng(0), 2, CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        DataplaneRuntime(bank, num_queues=2, device="cpu", **kw)
+@pytest.mark.parametrize("kw", [dict(fanout="shard_map", mesh_devices=["cpu", "cpu"])])
+def test_unported_options_raise(kw):
+    """No runtime option is left unported: ``shard_map`` (here split over
+    two CPU devices) serves exactly what ``vmap`` serves, and an unknown
+    fan-out still raises."""
+    bank = texecutor.init_bank(np.random.default_rng(0), 2, device="cpu")
+    trace = tphases.render(emergency_phases(2), num_slots=2, seed=1, num_queues=2)
+    runs = []
+    for fan in (dict(fanout="vmap"), kw):
+        rt = DataplaneRuntime(bank, num_queues=2, batch=32, ring_capacity=128,
+                              record=True, audit=True, device="cpu", **fan)
+        tphases.play(rt, trace)
+        runs.append((rt.completed_seq, rt.completed_verdicts, rt.completed_slots,
+                     rt.dropped_seq, rt.audit_conservation()))
+    assert runs[0] == runs[1]
+    assert runs[1][4]["ok"] and runs[1][4]["wrong_verdict"] == 0
+    with pytest.raises(ValueError, match="fanout"):
+        DataplaneRuntime(bank, num_queues=2, device="cpu", fanout="pmap")
 
 
 def test_runtime_never_moves_the_bank():

@@ -1,22 +1,27 @@
 """The port's fault injection and bounded epoch log against the JAX
 reference: fault plans and their JSON form, the single-host injection
 points (stall, stage and apply errors), the epoch spill read both ways,
-and a faulted single-host trace replayed bit-exactly in both packages."""
+a faulted single-host trace replayed bit-exactly in both packages, and the
+mesh's fault-tolerant barriers (stall, lease expiry, crash and strand,
+shard errors, a dropped ack, lost quorum, random plans, a faulted mesh
+trace) played through both packages' meshes."""
 
 import jax
 import numpy as np
 import pytest
 
-from _torch_parity import CPU, one_torch_thread  # noqa: F401
+from _torch_parity import CPU, mesh_state, one_torch_thread  # noqa: F401
+from repro.control import SwapSlot as JSwapSlot
 from repro.control import load_epoch_spill as jload_epoch_spill
 from repro.core import executor as jexecutor
 from repro.dataplane import DataplaneRuntime as JRuntime
+from repro.dataplane import MeshDataplane as JMesh
 from repro.dataplane import faults as jfaults
 from repro.dataplane import workloads as jworkloads
 from repro.dataplane.workloads import phases as jphases
-from repro_torch.control import NonFatalControlError, load_epoch_spill
+from repro_torch.control import NonFatalControlError, SwapSlot, load_epoch_spill
 from repro_torch.core import bank as tbank
-from repro_torch.dataplane import DataplaneRuntime, faults, workloads
+from repro_torch.dataplane import DataplaneRuntime, MeshDataplane, faults, workloads
 from repro_torch.dataplane.workloads import phases as tphases
 
 CFG = jexecutor.BNNConfig(hidden=16)
@@ -244,4 +249,246 @@ def test_faulted_trace_replays_bit_exactly_both_ways(banks, tmp_path, regime):
         assert (rt.control.continuity_audit()["commit_modes"]
                 == jrt2.control.continuity_audit()["commit_modes"])
         assert rt.control.continuity_audit()["ok"]
+    assert len(digests) == 1
+
+
+# ---------------------------------------------------------------------------
+# the mesh's fault-tolerant barriers, against the reference
+# ---------------------------------------------------------------------------
+
+LEASE = 4
+
+
+def _mesh_pair(banks, plan_fn, *, hosts=2, strategy="take", **kw):
+    """The same faulted mesh in both packages: the reference at ``take``,
+    the port at ``strategy`` (its fused kernel's plain version or take)."""
+    jb, tb = banks
+    kw.setdefault("batch", 32)
+    kw.setdefault("ring_capacity", 4096)
+    kw.setdefault("lease_ticks", LEASE)
+    out = []
+    for cls, fmod, bank, swap, delivery, extra, strat in (
+            (JMesh, jfaults, jb, JSwapSlot, _jax_delivery, {}, "take"),
+            (MeshDataplane, faults, tb, SwapSlot, _port_delivery,
+             dict(device="cpu"), strategy)):
+        plan = plan_fn(fmod)
+        inj = fmod.FaultInjector(plan) if plan is not None else None
+        mesh = cls(bank, hosts=hosts, num_queues=2, strategy=strat,
+                   fault_injector=inj, **kw, **extra)
+        out.append((mesh, swap, delivery))
+    return out
+
+
+def _drive(mesh, swap, delivery, *, ticks=14, swap_every=3, seed=3):
+    """The reference tests' drive: dispatch + tick with a SwapSlot epoch
+    every ``swap_every`` ticks, then drain."""
+    total = mesh.hosts * mesh.num_queues_per_host
+    trace = jphases.render([jphases.Phase("drive", ticks=ticks, burst=64, flows=16,
+                                          slot_mix=(0.5, 0.5))],
+                           num_slots=2, seed=seed, num_queues=total)
+    for t, b in enumerate(trace.bursts[0]):
+        if swap_every and t % swap_every == 1:
+            slot = (t // swap_every) % 2
+            mesh.control.submit(swap(slot, delivery(slot)))
+        mesh.dispatch(b)
+        mesh.tick()
+    mesh.drain()
+
+
+def _run_pair(banks, plan_fn, *, ticks, swap_every=3, **kw):
+    pair = _mesh_pair(banks, plan_fn, **kw)
+    for mesh, swap, delivery in pair:
+        _drive(mesh, swap, delivery, ticks=ticks, swap_every=swap_every)
+    (theirs, _, _), (ours, _, _) = pair
+    assert mesh_state(ours) == mesh_state(theirs)
+    return ours
+
+
+@pytest.mark.parametrize("strategy", ["fused", "take"])
+def test_mesh_stall_within_lease_defers_then_commits_atomic(banks, strategy):
+    mesh = _run_pair(banks, lambda f: f.FaultPlan(faults=(f.StallHost(1, 4, 2),),
+                                                  name="blip"),
+                     ticks=12, strategy=strategy, suspect_after=3, lease_ticks=6)
+    cont = mesh.control.continuity_audit()
+    assert cont["ok"], cont
+    assert cont["commit_modes"]["degraded"] == cont["commit_modes"]["rollback"] == 0
+    assert mesh.failover_epochs == [] and mesh.health.dead_hosts() == ()
+    stalled = [r for r in mesh.control.log if r.applied and r.applied_tick >= 4]
+    assert stalled and all(r.commit_mode == "atomic" for r in stalled)
+
+
+@pytest.mark.parametrize("strategy", ["fused", "take"])
+def test_mesh_lease_expiry_degrades_then_recovers(banks, strategy):
+    mesh = _run_pair(banks, lambda f: f.demo_plan("stall", hosts=2, lease_ticks=LEASE,
+                                                  at_tick=4),
+                     ticks=20, strategy=strategy)
+    cont = mesh.control.continuity_audit()
+    assert cont["ok"], cont
+    assert cont["commit_modes"]["degraded"] > 0
+    assert mesh.failover_epochs and mesh.restore_epochs
+    assert [t.to for t in mesh.health.transitions][:2] == ["suspect", "dead"]
+    assert mesh.health.state(1).value == "healthy"
+    aud = mesh.audit_conservation()
+    assert aud["ok"] and aud["stranded"]["packets"] == 0
+
+
+@pytest.mark.parametrize("strategy", ["fused", "take"])
+def test_mesh_crash_strands_packets_and_drain_converges(banks, strategy):
+    mesh = _run_pair(banks, lambda f: f.demo_plan("crash", hosts=2, lease_ticks=LEASE,
+                                                  at_tick=5),
+                     ticks=16, strategy=strategy)
+    aud = mesh.audit_conservation()
+    assert aud["ok"], aud
+    assert aud["stranded"]["hosts"] == [1] and aud["stranded"]["packets"] > 0
+    t = aud["totals"]
+    assert t["offered"] == (t["completed"] + t["dropped"] + t["occupancy"]
+                            + t["in_flight"])
+    assert mesh.control.continuity_audit()["commit_modes"]["degraded"] > 0
+    assert mesh.failover_epochs and not mesh.restore_epochs
+    assert mesh.health.is_dead(1)
+
+
+@pytest.mark.parametrize("point", ["stage", "apply"])
+def test_mesh_shard_error_rolls_back_atomically(banks, point):
+    mesh = _run_pair(banks, lambda f: f.FaultPlan(faults=(f.ShardError(1, 4, point),),
+                                                  name=f"err-{point}"),
+                     ticks=10, strategy="fused")
+    rolled = [r for r in mesh.control.log if r.commit_mode == "rollback"]
+    assert len(rolled) == 1 and "injected shard error" in rolled[0].error
+    assert not rolled[0].applied and rolled[0].apply_us is None
+    assert any(r.applied and r.epoch > rolled[0].epoch for r in mesh.control.log)
+    assert mesh.control.continuity_audit()["ok"]
+    assert mesh.health.dead_hosts() == ()
+
+
+def test_mesh_drop_ack_degrades_then_restores(banks):
+    mesh = _run_pair(banks, lambda f: f.FaultPlan(faults=(f.DropAck(1, 4),),
+                                                  name="lost-ack"),
+                     ticks=16, strategy="fused")
+    cont = mesh.control.continuity_audit()
+    assert cont["ok"] and cont["commit_modes"]["degraded"] >= 1
+    assert mesh.failover_epochs and mesh.restore_epochs
+    assert mesh.health.state(1).value == "healthy"
+    assert [t.to for t in mesh.health.transitions][0] == "suspect"
+
+
+def test_mesh_delay_retire_straggler(banks):
+    mesh = _run_pair(banks, lambda f: f.demo_plan("delay-retire", hosts=2,
+                                                  lease_ticks=LEASE),
+                     ticks=16, strategy="fused")
+    assert mesh.control.continuity_audit()["ok"]
+    assert mesh.audit_conservation()["ok"]
+
+
+def test_mesh_quorum_lost_rolls_back_not_commits(banks):
+    mesh = _run_pair(banks, lambda f: f.FaultPlan(
+        faults=(f.CrashHost(1, 3), f.CrashHost(2, 3)), name="two-down"),
+        hosts=3, ticks=14, strategy="fused")
+    rolled = [r for r in mesh.control.log if r.commit_mode == "rollback"]
+    assert rolled and all("quorum" in r.error for r in rolled)
+    assert not any(r.commit_mode == "degraded" for r in mesh.control.log
+                   if r.epoch > rolled[0].epoch)
+    assert mesh.control.continuity_audit()["ok"]
+    assert sorted(mesh.audit_conservation()["stranded"]["hosts"]) == [1, 2]
+
+
+def test_mesh_log_capacity_spills_like_reference(banks, tmp_path):
+    pair = _mesh_pair(banks, lambda f: None, strategy="fused", log_capacity=2)
+    for (mesh, swap, delivery), name in zip(pair, ("jax", "port")):
+        mesh.control._spill_path = str(tmp_path / f"{name}.bswel")
+        _drive(mesh, swap, delivery, ticks=14, swap_every=2)
+    (theirs, _, _), (ours, _, _) = pair
+    assert mesh_state(ours) == mesh_state(theirs)
+    stats = ours.control.stats()
+    assert len(ours.control.log) == 2 and stats["epochs_spilled"] >= 2
+    spilled = load_epoch_spill(str(tmp_path / "port.bswel"))
+    assert [d["epoch"] for d in spilled] == list(range(1, stats["epochs_spilled"] + 1))
+    assert all(d["commit_mode"] == "atomic" for d in spilled)
+    assert _untimed(spilled) == _untimed(jload_epoch_spill(str(tmp_path / "jax.bswel")))
+    cont = ours.control.continuity_audit()
+    assert cont["ok"] and cont["spilled_wrong_verdict"] == 0
+
+
+def test_mesh_commit_modes_and_snapshot(banks):
+    mesh = _run_pair(banks, lambda f: f.demo_plan("crash", hosts=2, lease_ticks=LEASE),
+                     ticks=12, strategy="fused")
+    for rec in mesh.control.command_log():
+        assert rec["commit_mode"] in ("atomic", "degraded", "rollback")
+    snap = mesh.snapshot()
+    assert snap["degraded_commits"] > 0
+    assert snap["health"]["hosts"][1]["state"] == "dead"
+    assert snap["fault_events"]
+
+
+@pytest.mark.parametrize("regime", ["emergency", "flash-crowd", "slot-thrash"])
+@pytest.mark.parametrize("plan_seed", [3, 1234])
+def test_mesh_random_faults_preserve_invariants(banks, regime, plan_seed):
+    """The reference's random-plan property at fixed seeds: conservation
+    (stranded included), zero wrong verdicts, per-queue FIFO, and the
+    same run as the reference's mesh."""
+    jb, tb = banks
+    runs = []
+    for cls, fmod, wl_mod, bank, delivery, extra, strat in (
+            (JMesh, jfaults, jworkloads, jb, _jax_delivery, {}, "take"),
+            (MeshDataplane, faults, workloads, tb, _port_delivery,
+             dict(device="cpu"), "fused")):
+        plan = fmod.random_plan(plan_seed, hosts=2, horizon=16)
+        wl = wl_mod.make_workload(regime, num_slots=2, num_queues=2, hosts=2)
+        rendered = wl_mod.render(list(wl.phases), num_slots=2, seed=plan_seed,
+                                 num_queues=4)
+        mesh = cls(bank, hosts=2, num_queues=2, strategy=strat, batch=32,
+                   ring_capacity=256, lease_ticks=LEASE, audit=True, record=True,
+                   fault_injector=fmod.FaultInjector(plan), **extra)
+        wl_mod.play(mesh, rendered, swap_delivery=delivery)
+        runs.append(mesh)
+    theirs, ours = runs
+    aud = ours.audit_conservation()
+    assert aud["ok"], aud
+    t = aud["totals"]
+    assert t["offered"] == (t["completed"] + t["dropped"] + t["occupancy"]
+                            + t["in_flight"])
+    cont = ours.control.continuity_audit()
+    assert cont["ok"] and cont["wrong_verdict_total"] == 0
+    for shard in ours.shards:
+        for seqs in shard.completed_seq:
+            assert (np.diff(np.asarray(seqs)) > 0).all()
+    assert mesh_state(ours) == mesh_state(theirs)
+
+
+def test_faulted_mesh_trace_replays_bit_exactly_both_ways(banks, tmp_path):
+    """crash-mid-commit at two hosts, recorded by either package and
+    replayed by both on ``make_runtime``'s mesh: equal digests, commit
+    modes and stranded packets."""
+    jb, tb = banks
+    for rec_mod, fmod, cls, bank, delivery, extra, name in (
+            (jworkloads, jfaults, JMesh, jb, _jax_delivery, {}, "jax"),
+            (workloads, faults, MeshDataplane, tb, _port_delivery,
+             dict(device="cpu"), "port")):
+        wl = rec_mod.make_workload("crash-mid-commit", num_slots=2, num_queues=2,
+                                   hosts=2)
+        mesh = cls(bank, hosts=2, num_queues=2, strategy="take", batch=32,
+                   ring_capacity=4096, lease_ticks=LEASE, record=True, audit=True,
+                   fault_injector=fmod.FaultInjector(wl.fault_plan), **extra)
+        rec = rec_mod.record(mesh, path=str(tmp_path / f"{name}.bswt"))
+        rec_mod.play(rec, rec_mod.render(list(wl.phases), num_slots=2, seed=9,
+                                         num_queues=4), swap_delivery=delivery)
+        st = rec.finish(name=wl.name, seed=9)
+        assert st.meta["hosts"] == 2 and st.meta["lease_ticks"] == LEASE
+        assert st.meta["fault_plan"]["faults"]
+    digests = set()
+    for name in ("jax", "port"):
+        path = str(tmp_path / f"{name}.bswt")
+        loaded = workloads.load(path)
+        rt = workloads.make_runtime(loaded, audit=True, device="cpu")
+        assert isinstance(rt, MeshDataplane) and rt.quorum == loaded.meta["quorum"]
+        rep = workloads.replay(loaded, rt)
+        assert rep["ok"] and rep["digest_ok"], rep["mismatches"]
+        jloaded = jworkloads.load(path)
+        jrt = jworkloads.make_runtime(jloaded, audit=True)
+        jrep = jworkloads.replay(jloaded, jrt)
+        assert jrep["ok"] and jrep["digest_ok"], jrep["mismatches"]
+        assert rep["digest"] == jrep["digest"]
+        digests.add(rep["digest"]["sha256"])
+        assert mesh_state(rt) == mesh_state(jrt)
+        assert rt.audit_conservation()["stranded"]["hosts"] == [1]
     assert len(digests) == 1

@@ -20,13 +20,18 @@ import torch
 from repro_torch.core import bank as tbank
 from repro_torch.core import executor as texecutor
 from repro_torch.kernels import _build
-from repro_torch.dataplane import workloads
+from repro_torch.dataplane import MeshDataplane, workloads
 from repro_torch.launch import packetpath
 from repro_torch.train import bnn
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 FIG8M = ROOT / "benchmarks_torch" / "fig8m_megastep.py"
+FIG10 = ROOT / "benchmarks_torch" / "fig10_mesh.py"
+FIG12 = ROOT / "benchmarks_torch" / "fig12_faults.py"
+PAPER_FIGURES = [ROOT / "benchmarks_torch" / f"{name}.py" for name in (
+    "fig4_runtime", "fig5_scaling", "fig6_slot_behavior", "fig7_fused",
+    "table4_continuity", "table5_controlplane")]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", QUICKSTART] + sorted(
     (ROOT / "benchmarks_torch").glob("*.py"))
@@ -74,7 +79,16 @@ def test_entry_points_raise_without_cuda(no_cuda):
                                  num_queues=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         workloads.make_runtime(trace)
-    for path in (QUICKSTART, FIG8M):
+    cpu_bank = texecutor.init_bank(rng, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MeshDataplane(cpu_bank, hosts=2, num_queues=2)
+    two_hosts = workloads.synthesize(
+        workloads.make_workload("chaos-host-failover", num_slots=2, num_queues=2,
+                                hosts=2).phases, num_slots=2, num_queues=4)
+    two_hosts.meta.update(hosts=2, queues_per_host=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        workloads.make_runtime(two_hosts)
+    for path in (QUICKSTART, FIG8M, FIG10, FIG12, *PAPER_FIGURES):
         spec = importlib.util.spec_from_file_location(path.stem, path)
         script = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(script)

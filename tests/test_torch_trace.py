@@ -16,12 +16,13 @@ from _torch_parity import CPU, one_torch_thread  # noqa: F401
 from repro.control import make_policy as jmake_policy
 from repro.core import executor as jexecutor
 from repro.dataplane import DataplaneRuntime as JRuntime
+from repro.dataplane import MeshDataplane as JMesh
 from repro.dataplane import workloads as jworkloads
 from repro.dataplane.workloads import trace as jtrace
 from repro_torch import codec
 from repro_torch.control import FailQueues, RestoreQueues, make_policy
 from repro_torch.core import bank as tbank
-from repro_torch.dataplane import DataplaneRuntime, workloads
+from repro_torch.dataplane import DataplaneRuntime, MeshDataplane, workloads
 from repro_torch.dataplane.workloads import Phase, ChaosEvent
 from repro_torch.dataplane.workloads import trace as ttrace
 
@@ -315,19 +316,39 @@ def test_trace_rejects_bad_files(tmp_path):
         workloads.load(str(partial))
 
 
-def test_multi_host_traces_wait_for_the_mesh(banks):
-    _, tb = banks
-    trace = workloads.synthesize(
-        workloads.make_workload("chaos-host-failover", num_slots=2, num_queues=2,
-                                hosts=2).phases, num_slots=2, num_queues=4)
-    trace.meta["hosts"] = 2
-    with pytest.raises(NotImplementedError, match="item 9"):
-        workloads.make_runtime(trace, bank=tb)
-
-    class TwoHosts:
-        hosts = 2
-    with pytest.raises(NotImplementedError, match="item 9"):
-        workloads.record(TwoHosts())
+@pytest.mark.parametrize("regime", ["chaos-host-failover", "cascading-failover"])
+def test_multi_host_traces_wait_for_the_mesh(banks, tmp_path, regime):
+    """A two-host trace, recorded on either package's mesh, replays on the
+    other's mesh (``make_runtime`` builds one) with the same digest."""
+    jb, tb = banks
+    for wl_mod, cls, bank, delivery, extra, name in (
+            (jworkloads, JMesh, jb, _jax_delivery, {}, "jax"),
+            (workloads, MeshDataplane, tb, _port_delivery, dict(device="cpu"), "port")):
+        wl = wl_mod.make_workload(regime, num_slots=2, num_queues=2, hosts=2)
+        mesh = cls(bank, hosts=2, num_queues=2, strategy="take", batch=64,
+                   ring_capacity=256, record=True, audit=True, **extra)
+        rec = wl_mod.record(mesh, path=str(tmp_path / f"{name}.bswt"))
+        wl_mod.play(rec, wl_mod.render(list(wl.phases), num_slots=2, seed=4,
+                                       num_queues=4), swap_delivery=delivery)
+        st = rec.finish(name=regime, seed=4)
+        assert (st.meta["hosts"], st.meta["queues_per_host"], st.meta["num_queues"]) \
+            == (2, 2, 4)
+    digests = set()
+    for name in ("jax", "port"):
+        path = str(tmp_path / f"{name}.bswt")
+        loaded = workloads.load(path)
+        rt = workloads.make_runtime(loaded, audit=True, device="cpu")
+        assert isinstance(rt, MeshDataplane) and rt.hosts == 2
+        rep = workloads.replay(loaded, rt)
+        assert rep["ok"] and rep["digest_ok"], rep["mismatches"]
+        jloaded = jworkloads.load(path)
+        jrep = jworkloads.replay(jloaded, jworkloads.make_runtime(jloaded, audit=True))
+        assert jrep["ok"] and jrep["digest_ok"], jrep["mismatches"]
+        assert rep["digest"] == jrep["digest"] == loaded.expect["digest"]
+        assert rt.control.continuity_audit()["ok"]
+        assert all(len(set(b["host_ticks"])) == 1 for b in rt.barrier_log)
+        digests.add(rep["digest"]["sha256"])
+    assert len(digests) == 1
 
 
 def test_record_refuses_an_unregistered_policy(banks):

@@ -1,6 +1,8 @@
 """The port's workload regimes against the JAX reference: every regime's
 phase list (at one and two hosts), its rendered bursts, the file corpus,
-the registry, and each single-host regime played through both runtimes."""
+the registry, each single-host regime played through both runtimes, and
+the four regimes that change shape at two hosts played through both
+meshes."""
 
 import dataclasses
 
@@ -8,14 +10,17 @@ import jax
 import numpy as np
 import pytest
 
-from _torch_parity import CPU, one_torch_thread  # noqa: F401
+from _torch_parity import CPU, mesh_state, one_torch_thread  # noqa: F401
 from repro.core import executor as jexecutor
 from repro.dataplane import DataplaneRuntime as JRuntime
+from repro.dataplane import MeshDataplane as JMesh
 from repro.dataplane import faults as jfaults
 from repro.dataplane import workloads as jworkloads
 from repro.dataplane.workloads import generators as jgenerators
 from repro_torch.core import bank as tbank
-from repro_torch.dataplane import DataplaneRuntime, faults, scenarios, workloads
+from repro_torch.control import FailQueues
+from repro_torch.dataplane import (DataplaneRuntime, MeshDataplane, faults, scenarios,
+                                   workloads)
 from repro_torch.dataplane.workloads import generators
 
 CFG = jexecutor.BNNConfig(hidden=16)
@@ -176,3 +181,72 @@ def test_regime_plays_like_reference(banks, name):
                      [{k: r[k] for k in workloads.INVARIANT_KEYS} for r in reports],
                      None if injector is None else injector.events))
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# the mesh regimes, through both meshes
+# ---------------------------------------------------------------------------
+
+MESH_REGIMES = ("cascading-failover", "chaos-host-failover", "barrier-straggler",
+                "crash-mid-commit")
+
+
+@pytest.mark.parametrize("name", MESH_REGIMES)
+def test_mesh_regime_plays_like_reference(banks, name):
+    """The regimes that change shape at two hosts, 2 queues per host, their
+    fault plans armed: the same mesh run in both packages (the reference at
+    ``take``, the port at ``fused``)."""
+    jb, tb = banks
+    runs = []
+    for wl_mod, fmod, cls, bank, delivery, extra, strat in (
+            (jworkloads, jfaults, JMesh, jb, _jax_delivery, {}, "take"),
+            (workloads, faults, MeshDataplane, tb, _port_delivery,
+             dict(device="cpu"), "fused")):
+        wl = wl_mod.make_workload(name, num_slots=2, num_queues=2, hosts=2)
+        injector = (fmod.FaultInjector(wl.fault_plan)
+                    if wl.fault_plan is not None else None)
+        mesh = cls(bank, hosts=2, num_queues=2, strategy=strat, batch=64,
+                   ring_capacity=256, record=True, audit=True, lease_ticks=4,
+                   fault_injector=injector, **extra)
+        rendered = wl_mod.render(list(wl.phases), num_slots=2, seed=3, num_queues=4)
+        reports = wl_mod.play(mesh, rendered, swap_delivery=delivery)
+        assert mesh.control.continuity_audit()["ok"]
+        runs.append((mesh_state(mesh),
+                     [{k: r[k] for k in workloads.INVARIANT_KEYS} for r in reports]))
+    assert runs[0] == runs[1]
+
+
+def test_synthesized_replay_deterministic_on_mesh(banks, tmp_path):
+    """chaos-host-failover synthesized at two hosts, replayed twice on the
+    port's mesh and once on the reference's: one digest, and the host-loss
+    epoch failed a whole host's queues with equal barrier stamps."""
+    jb, tb = banks
+    w = workloads.make_workload("chaos-host-failover", num_slots=2, num_queues=2,
+                                hosts=2)
+    trace = workloads.synthesize(w.phases, num_slots=2, num_queues=4, seed=5,
+                                 name=w.name)
+    path = str(tmp_path / "mesh.bswt")
+    workloads.save(trace, path)
+    trace = workloads.load(path)
+
+    def run():
+        rt = MeshDataplane(tb, hosts=2, num_queues=2, batch=64, ring_capacity=256,
+                           record=True, audit=True, device="cpu")
+        return rt, workloads.replay(trace, rt, swap_delivery=_port_delivery)
+
+    rt1, rep1 = run()
+    _, rep2 = run()
+    assert rep1["ok"], rep1["mismatches"]
+    assert rep1["digest"]["sha256"] == rep2["digest"]["sha256"]
+    assert rt1.telemetry.wrong_verdict == 0
+    assert rt1.control.continuity_audit()["ok"]
+    fails = [r for r in rt1.control.log
+             if any(isinstance(c, FailQueues) for c in r.commands)]
+    assert fails and fails[0].host_ticks is not None
+    assert len(set(fails[0].host_ticks)) == 1
+    jtr = jworkloads.load(path)
+    jrt = JMesh(jb, hosts=2, num_queues=2, batch=64, ring_capacity=256,
+                strategy="take", record=True, audit=True)
+    jrep = jworkloads.replay(jtr, jrt, swap_delivery=_jax_delivery)
+    assert jrep["digest"] == rep1["digest"]
+    assert mesh_state(rt1) == mesh_state(jrt)
