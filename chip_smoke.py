@@ -134,7 +134,36 @@ Phases, in order; any failure raises and exits non-zero:
    reference shapes (``fig4_runtime``, ``fig5_scaling``,
    ``fig6_slot_behavior``, ``fig7_fused``, ``table4_continuity``,
    ``table5_controlplane``; ``PAPER_FIGURES``) and prints every number it
-   reports as one ``paper_figures`` JSON object.
+   reports as one ``paper_figures`` JSON object;
+7. drives observability, checkpoints and deployment
+   (``run_obs_deploy_phase``) on the emergency runtime's shape
+   (``emergency_phases(16, scale=16)`` from seed 0 rendered over
+   ``deploy.labeled_pool(512, 0)``'s payloads, 4 queues, batch 2048,
+   ``block_b`` 256, ring 16384, fused, audit on, K = 16), each part with the
+   launch counts set to 0 around it: (a) the scenario played plain, with
+   ``obs.attach`` and an ``AnomalyDetector`` polled after every tick, and
+   with a ``PacketSampler`` alone (5 alternating runs each, each after a
+   garbage collection): the deltas sum to ``telemetry.snapshot()``, the
+   stream conserves its events, the detector names ``emergency``; kpps and
+   overhead by the medians and the best runs, deltas per tick, the host µs
+   of ``emit_delta`` and of the detector's poll per tick; (b) ``ObsServer`` over that
+   run on 127.0.0.1, port 0 (a failure to bind fails the script):
+   ``/healthz``, ``/metrics`` totals equal to the snapshot, ``/epochs``
+   equal to ``epoch_log_doc``, ``/anomaly`` naming ``emergency``, ``/`` the
+   dashboard, 404 elsewhere; (c) one ``ScheduledRollout`` that must promote
+   and one with ``corrupt=True`` that must roll back, each on a
+   ``DeployDriver`` with a ``PacketSampler`` (24 STE steps on the card,
+   8-tick bake): exactly one terminal decision of the expected kind, every
+   decision's epoch applied, zero wrong verdicts, conservation and
+   continuity; fine-tune ms, canary start to decision ms; (d) the promoted trainer's checkpoint (under
+   ``build/checkpoints/``) restored on the card bit-equal, and its packed
+   weights' bake-window error equal to the promoted weights'; the codec;
+   (e) a window-8 megastep with a sampler (``max_pending=3``) and a
+   capacity-4 stream: the backlog stays at most 3 and the overflow is
+   conserved.  ``xnor_matmul``'s launches in (c) and (d) count under a row
+   per batch size, checked and timed as the others; then
+   ``benchmarks_torch/fig13_obs.py`` and ``fig14_deploy.py`` run once at
+   the reference's shapes (``obs_deploy_figures``).
 
 Lines printed before the last: the probe's binary-MMA rates (one JSON
 object, ``binary_mma_rates``), the data plane's kpps per phase, the swap
@@ -147,7 +176,9 @@ device time of one PyTorch kernel on 128 bytes, taken as the kernels'
 times are, against which the B = 1 row reads; the megastep sweep's kpps
 per phase and window, the tick split and the window profile; the mesh's
 lines (a to f), ``mesh_epoch_apply_us``, ``mesh_tick_profile`` and
-``paper_figures``.  The last line is
+``paper_figures``; phase 7's ``obs_stream``, ``obs_server``, ``deploy``,
+``checkpoint``, ``megastep_obs_deploy`` and ``obs_deploy_figures``.  The
+last line is
 ``{"ok": true, "device": {...}}``.
 A kernel's ``ms`` is its device time, from CUDA events around calls queued
 behind a busy-wait kernel; ``library_ms`` is taken the same way;
@@ -568,18 +599,362 @@ def run_mesh_phase(*, counted, entries, dev, bank, scenario, single, trace_dir,
     return {"new": new}
 
 
-def run_paper_figures(dev) -> dict:
-    """Each paper-figure benchmark of ``benchmarks_torch`` run once at its
+def run_paper_figures(dev, names=PAPER_FIGURES) -> dict:
+    """Each benchmark of ``benchmarks_torch`` in ``names`` run once at its
     reference shapes; every number it reports, by name."""
     import importlib
 
     numbers = {}
-    for name in PAPER_FIGURES:
+    for name in names:
         mod = importlib.import_module(f"benchmarks_torch.{name}")
         t0 = time.perf_counter()
         mod.run(dev, lambda key, value, note="": numbers.__setitem__(key, value))
         numbers[f"{name}.wall_s"] = time.perf_counter() - t0
     return numbers
+
+
+OBS_POOL_SAMPLES = 512            # labeled_pool samples per capture group
+OBS_STREAM_CAPACITY = 1 << 16
+OBS_REPEATS = 5                    # alternating plain / observed / sampled runs
+DEPLOY_WARMUP, DEPLOY_BAKE, DEPLOY_STEPS = 8, 8, 24
+MEGA_MAX_PENDING, MEGA_STREAM_CAPACITY = 3, 4
+BENCH_FIGURES = ("fig13_obs", "fig14_deploy")
+
+
+def stream_sums(rt, events) -> list[str]:
+    """Where the delta events do not sum to ``rt.telemetry.snapshot()``."""
+    from repro_torch.dataplane import telemetry
+
+    snap = rt.telemetry.snapshot()
+    done, drop, slots, ev = {}, {}, {}, {}
+    for e in events:
+        if e.get("kind") != "delta":
+            continue
+        for q in e["queues"]:
+            i = q["queue"]
+            done[i] = done.get(i, 0) + q["completed"]
+            drop[i] = drop.get(i, 0) + q["dropped"]
+            slots[i] = [a + b for a, b in zip(slots.get(i, [0] * len(q["per_slot"])),
+                                              q["per_slot"])]
+        for name, d in e["events"].items():
+            ev[name] = ev.get(name, 0) + d
+    bad = []
+    for q in snap["queues"]:
+        i = q["queue"]
+        if (done.get(i, 0), drop.get(i, 0)) != (q["completed"], q["dropped"]):
+            bad.append(f"queue {i} counts")
+        if q["completed"] and slots.get(i) != list(q["per_slot_total"]):
+            bad.append(f"queue {i} slot mix")
+    bad += [name for name in telemetry.EVENT_COUNTERS if ev.get(name, 0) != snap[name]]
+    return bad
+
+
+class _EachTick:
+    """A deploy pilot that calls ``fn`` after every tick (a detector's poll,
+    a watch on the sampler's backlog)."""
+
+    def __init__(self, fn):
+        self.step = fn
+
+    def flush(self) -> None:
+        pass
+
+
+def run_obs_deploy_phase(*, counted, entries, dev, bank, dp_row, win_row, win_key,
+                         check_xnor, out) -> None:
+    """Phase 7 (a to e of the module docstring) on the emergency runtime's
+    shape, each part with the launch counts set to 0 around it; the fused
+    launches count under the data plane's B = DP_BATCH row (the window's
+    under the window's row) and ``xnor_matmul``'s under a row per batch
+    size, which ``check_xnor`` adds for sizes no earlier part ran."""
+    import gc
+    import shutil
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from repro_torch import codec, deploy, obs
+    from repro_torch.checkpoint import store
+    from repro_torch.core import packet as pkt
+    from repro_torch.dataplane import DataplaneRuntime, emergency_phases, play, render
+    from repro_torch.obs.server import ObsServer, _json_default
+    from repro_torch.train import bnn
+    from benchmarks_torch import fig13_obs
+
+    seq_key = "gather/meta16/actions"
+    pool, labels = deploy.labeled_pool(samples_per_group=OBS_POOL_SAMPLES, seed=0)
+    oracle = deploy.LabelOracle(pool, labels)
+    scenario = render(emergency_phases(K_DB, scale=DP_SCALE), num_slots=K_DB, seed=0,
+                      payload_pool=pool)
+    packets = sum(b.shape[0] for phase in scenario.bursts for b in phase)
+    xnor_launches: dict[int, int] = {}
+
+    def new_rt(**kw):
+        return DataplaneRuntime(bank, num_queues=DP_QUEUES, batch=DP_BATCH,
+                                block_b=BLOCK_B, ring_capacity=DP_RING,
+                                strategy="fused", audit=True, device=dev, **kw)
+
+    def audited(label, rt):
+        aud, cont = rt.audit_conservation(), rt.control.continuity_audit()
+        if not aud["ok"] or aud["wrong_verdict"] or not cont["ok"]:
+            fail(f"{label}: conservation {aud['ok']}, wrong_verdict "
+                 f"{aud['wrong_verdict']}, continuity {cont['ok']}")
+
+    def tally(n, row=dp_row, key=seq_key):
+        entries[row]["launches"] += n["fused"].get(key, 0)
+        for b, k in n["xnor"].items():
+            xnor_launches[b] = xnor_launches.get(b, 0) + k
+
+    # a. the stream: the scenario played plain, with obs.attach and a
+    # detector polled after every tick, and with a sampler alone; the three
+    # alternate, OBS_REPEATS each, with the previous run's garbage collected
+    # before the clock starts (runs spread by +-10%, more than the stream or
+    # the sampler costs, so the median and the direct host share are shown)
+    def played(mode):
+        rt, stream, det, acc, sampler = new_rt(), None, None, None, None
+        driver, poll = rt, {"s": 0.0}
+        if mode == "observed":
+            stream = obs.TelemetryStream(capacity=OBS_STREAM_CAPACITY)
+            obs.attach(rt, stream)
+            acc = fig13_obs.time_emit_delta(rt)
+            det = obs.AnomalyDetector(stream, num_queues=DP_QUEUES, num_slots=K_DB)
+
+            def timed_poll():
+                t0 = time.perf_counter()
+                det.poll()
+                poll["s"] += time.perf_counter() - t0
+
+            driver = deploy.DeployDriver(rt, _EachTick(timed_poll))
+        elif mode == "sampled":
+            sampler = deploy.PacketSampler(oracle, num_slots=K_DB).attach(rt)
+        gc.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        play(driver, scenario)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if sampler is not None:
+            sampler.detach()
+        return rt, wall, {"stream": stream, "det": det, "acc": acc, "poll": poll}
+
+    walls = {"plain": [], "observed": [], "sampled": []}
+    for _ in range(OBS_REPEATS):
+        for mode in walls:
+            (rt_m, wall, parts), n = counted(lambda: played(mode))
+            tally(n)
+            audited(f"obs stream ({mode})", rt_m)
+            walls[mode].append(wall)
+            if mode == "observed":
+                rt, obs_wall = rt_m, wall
+                stream, det, acc, poll = (parts[k] for k in ("stream", "det", "acc",
+                                                             "poll"))
+    events = stream.latest(OBS_STREAM_CAPACITY)
+    bad = stream_sums(rt, events)
+    stats = stream.snapshot_stats()
+    if bad:
+        fail(f"obs stream: the deltas do not sum to the snapshot ({bad})")
+    if stats["next_sid"] != stats["buffered"] + stats["dropped_events"]:
+        fail(f"obs stream: events not conserved {stats}")
+    det.poll()
+    cls = det.classify()
+    if cls["regime"] != "emergency":
+        fail(f"obs detector: classified {cls['regime']!r} ({cls['evidence']})")
+    ticks = rt.telemetry.runtime_ticks
+    deltas = sum(e["kind"] == "delta" for e in events)
+    med = {m: float(np.median(w)) for m, w in walls.items()}
+    out["stream"] = {
+        "kpps_plain": packets / med["plain"] / 1e3,
+        "kpps_observed": packets / med["observed"] / 1e3,
+        "overhead_pct_median": (med["observed"] / med["plain"] - 1.0) * 100.0,
+        "overhead_pct_best": (min(walls["observed"]) / min(walls["plain"]) - 1.0) * 100.0,
+        "host_share_pct": (acc["s"] + poll["s"]) / obs_wall * 100.0,
+        "walls_s": walls, "deltas_per_tick": deltas / ticks, "ticks": ticks,
+        "emit_delta_host_us_per_tick": acc["s"] * 1e6 / ticks,
+        "detector_poll_host_us_per_tick": poll["s"] * 1e6 / ticks,
+        "stream": stats, "regime": cls["regime"], "detect_tick": det.detect_tick(),
+        "proposals": [c.describe() for c in det.proposals()]}
+    print(json.dumps({"obs_stream": out["stream"]}), flush=True)
+
+    # b. the server over the run of (a), on 127.0.0.1 at a port the kernel picks
+    server = ObsServer(rt, stream, detector=det, host="127.0.0.1", port=0).start()
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        took = {}
+
+        def get(ep, as_json=True):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(base + ep, timeout=10) as r:
+                body = r.read()
+            took[ep] = (time.perf_counter() - t0) * 1e3
+            return json.loads(body) if as_json else body
+
+        snap = rt.telemetry.snapshot()
+        if get("/healthz") != {"ok": True, "port": server.port}:
+            fail("obs server: /healthz")
+        m = get("/metrics")
+        if (m["totals"]["completed"], m["totals"]["dropped"]) != (
+                snap["completed_total"], snap["dropped_total"]):
+            fail(f"obs server: /metrics totals {m['totals']} against the snapshot")
+        if get("/epochs") != json.loads(json.dumps(obs.epoch_log_doc(rt),
+                                                   default=_json_default)):
+            fail("obs server: /epochs differs from epoch_log_doc")
+        if get("/anomaly")["regime"] != "emergency":
+            fail("obs server: /anomaly does not name emergency")
+        if b"dataplane observer" not in get("/", as_json=False):
+            fail("obs server: / does not serve the dashboard")
+        try:
+            get("/nope")
+            fail("obs server: /nope answered")
+        except urllib.error.HTTPError as e:
+            if e.code != 404:
+                fail(f"obs server: /nope gave {e.code}")
+    finally:
+        server.stop()
+    out["server"] = {"port": server.port, "ms": took}
+    print(json.dumps({"obs_server": out["server"]}), flush=True)
+
+    # c. deployment: one rollout that promotes and one with corrupted
+    # weights that must roll back, each on a DeployDriver with a sampler
+    ckpt_dir = os.path.join(ROOT, "build", "checkpoints", "promote")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def rollout(corrupt):
+        rt = new_rt()
+        sampler = deploy.PacketSampler(oracle, num_slots=K_DB).attach(rt)
+        driver = deploy.DeployDriver(rt)
+        pilot = deploy.ScheduledRollout(
+            driver, sampler, deploy.OnlineTrainer(
+                steps=DEPLOY_STEPS, seed=0, device=dev,
+                checkpoint_dir=None if corrupt else ckpt_dir),
+            warmup_ticks=DEPLOY_WARMUP, min_samples=48, corrupt=corrupt,
+            canary_kw=dict(bake_ticks=DEPLOY_BAKE, min_samples=24))
+        driver.add(pilot)
+        t0 = time.perf_counter()
+        play(driver, scenario)
+        driver.flush_deploy()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sampler.detach()
+        return rt, sampler, pilot, wall
+
+    out["deploy"] = {}
+    runs = {}
+    for corrupt, want in ((False, "promoted"), (True, "rolled_back")):
+        (rt, sampler, pilot, wall), n = counted(lambda: rollout(corrupt))
+        tally(n)
+        audited(f"deploy ({want})", rt)
+        terminal = [d for d in rt.deploy_log if d["event"] in ("promoted", "rolled_back")]
+        if len(terminal) != 1 or terminal[0]["event"] != want:
+            fail(f"deploy: expected one {want} decision, got {rt.deploy_log}")
+        applied = {r.epoch for r in rt.control.log if r.applied}
+        missing = [d["event"] for d in rt.deploy_log
+                   if d["event"] in ("canary_start", "promoted", "rolled_back")
+                   and d["epoch"] not in applied]
+        if missing:
+            fail(f"deploy ({want}): decisions without an applied epoch: {missing}")
+        rec = terminal[0]
+        runs[want] = (rt, sampler, pilot)
+        out["deploy"][want] = {
+            "fine_tune_ms": pilot.result.train_us / 1e3,
+            "canary_to_decision_ms": rec["metrics"]["elapsed_us"] / 1e3,
+            "bake_window_ticks": rec["metrics"]["bake_window_ticks"],
+            "err_new": rec["metrics"].get("err_new"),
+            "err_base": rec["metrics"].get("err_base"),
+            "train_samples": pilot.result.metrics["samples"],
+            "holdout_err": pilot.result.metrics["err"],
+            "kpps_with_rollout": packets / wall / 1e3,
+            "sampler": sampler.stats(), "xnor_launches": dict(n["xnor"])}
+
+    out["deploy"]["kpps_sampler"] = packets / med["sampled"] / 1e3
+    out["deploy"]["sampler_overhead_pct_median"] = (
+        med["sampled"] / med["plain"] - 1.0) * 100.0
+    out["deploy"]["kpps_no_sampler"] = out["stream"]["kpps_plain"]
+    print(json.dumps({"deploy": out["deploy"]}), flush=True)
+
+    # d. the trainer's checkpoint, restored on the card: bit-equal, and the
+    # restored weights give the promoted weights' bake-window error
+    _, sampler, pilot = runs["promoted"]
+    step = store.latest_step(ckpt_dir)
+    step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(step_dir, "MANIFEST.msgpack"), "rb") as f:
+        manifest = codec.unpackb(f.read())
+
+    def restored_err():
+        latent, _ = store.restore(ckpt_dir, step, pilot.result.latent, device=dev)
+        words, labs, _, _ = sampler.window_since(0)
+        return latent, (deploy.paired_err(bnn.pack_trained(latent), words, labs),
+                        deploy.paired_err(pilot.result.params, words, labs))
+
+    (latent, errs), n = counted(restored_err)
+    tally(n)
+    if not all(torch.equal(latent[k], pilot.result.latent[k]) for k in latent):
+        fail("checkpoint: the restored latent differs from the saved one")
+    if errs[0] != errs[1]:
+        fail(f"checkpoint: restored weights err {errs[0]} against {errs[1]}")
+    out["checkpoint"] = {"codec": manifest["codec"], "step": step,
+                         "leaves": [e["path"] for e in manifest["leaves"]],
+                         "bytes": sum(os.path.getsize(os.path.join(step_dir, e))
+                                      for e in os.listdir(step_dir)),
+                         "window_err": errs[0]}
+    print(json.dumps({"checkpoint": out["checkpoint"]}), flush=True)
+
+    # e. a window-8 megastep with a sampler (max_pending 3) and a stream of
+    # capacity 4: the backlog stays bounded, the overflow is conserved
+    def mega():
+        rt = new_rt(megastep_ticks=WINDOW_TICKS)
+        if rt._mega is None:
+            fail("megastep: the engine is off")
+        sampler = deploy.PacketSampler(oracle, num_slots=K_DB, per_tick=8,
+                                       max_pending=MEGA_MAX_PENDING).attach(rt)
+        stream = obs.TelemetryStream(capacity=MEGA_STREAM_CAPACITY)
+        obs.attach(rt, stream)
+        peak = {"pending": 0, "flush": 0}
+        real_flush = sampler.flush
+
+        def flush():
+            peak["flush"] = max(peak["flush"], len(sampler._pending))
+            return real_flush()
+
+        sampler.flush = flush
+        watch = _EachTick(lambda: peak.__setitem__(
+            "pending", max(peak["pending"], len(sampler._pending))))
+        play(deploy.DeployDriver(rt, watch), scenario)
+        peak["pending"] = max(peak["pending"], len(sampler._pending))
+        sampler.detach()
+        return rt, sampler, stream, peak
+
+    (rt, sampler, stream, peak), n = counted(mega)
+    tally(n, row=win_row, key=win_key)
+    entries[dp_row]["launches"] += n["fused"].get(seq_key, 0)
+    audited("megastep with sampler and stream", rt)
+    s = stream.snapshot_stats()
+    completed = rt.snapshot()["completed_total"]
+    if max(peak.values()) > MEGA_MAX_PENDING:
+        fail(f"megastep: sampler backlog {peak} above {MEGA_MAX_PENDING}")
+    if sampler.seen != completed or sampler.labeled + sampler.unknown != sampler.sampled:
+        fail(f"megastep: sampler saw {sampler.seen} of {completed}")
+    if s["next_sid"] != s["buffered"] + s["dropped_events"] or not s["dropped_events"]:
+        fail(f"megastep: stream overflow not conserved {s}")
+    if n["fused"].get(win_key, 0) < 1:
+        fail("megastep: the window's launch never ran")
+    out["megastep"] = {"peak_pending": peak, "stream": s, "completed": completed,
+                       "window_launches": n["fused"][win_key]}
+    print(json.dumps({"megastep_obs_deploy": out["megastep"]}), flush=True)
+
+    # xnor_matmul at the batch sizes (c) and (d) ran it: each a row of its own
+    xin = pkt.to_device(np.tile(pool, (-(-max(xnor_launches, default=1)
+                                          // pool.shape[0]), 1)), dev)
+    w = pilot.result.params["w1p"]
+    for b, k in sorted(xnor_launches.items()):
+        if f"xnor/B{b}" not in entries:
+            check_xnor(xin[:b], w)
+        entries[f"xnor/B{b}"]["launches"] += k
+    out["xnor_launches"] = xnor_launches
+
+    # fig13 and fig14 at the reference's shapes, each run once
+    out["figures"] = run_paper_figures(dev, BENCH_FIGURES)
+    print(json.dumps({"obs_deploy_figures": out["figures"]}), flush=True)
 
 
 def main() -> int:
@@ -1446,6 +1821,16 @@ def main() -> int:
 
     # The paper's figures on the port, each benchmark run once.
     print(json.dumps({"paper_figures": run_paper_figures(dev)}), flush=True)
+
+    # -- 7. observability, checkpoints and deployment --------------------------
+    obs_out = {}
+    run_obs_deploy_phase(counted=counted, entries=entries, dev=dev, bank=front,
+                         dp_row=dp_row, win_row=win_row, win_key=win_key,
+                         check_xnor=check_xnor, out=obs_out)
+    end_to_end["obs_deploy"] = {k: obs_out[k] for k in ("stream", "deploy", "checkpoint")}
+    for e in entries.values():
+        if e["launches"] < 1:
+            fail(f"{e['name']} was not launched on the main path")
     print(json.dumps({"end_to_end": end_to_end}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -792,6 +792,23 @@ def save(trace: WorkloadTrace, path: str) -> int:
                     expect=trace.expect, bank_leaves=trace.bank_leaves)
 
 
+def _save_v1(trace: WorkloadTrace, path: str) -> int:
+    """The pre-chunking monolithic writer (one ``zlib(MessagePack(doc))``
+    blob), byte-equal to the reference's: for compatibility tests and the
+    codec comparison of ``benchmarks_torch/fig13_obs.py``."""
+    doc = {
+        "meta": dict(trace.meta, version=1),
+        "steps": [_enc_step(s) for s in trace.steps],
+        "expect": trace.expect,
+        "bank": (None if trace.bank_leaves is None else
+                 [_enc_nd(np.asarray(leaf)) for leaf in trace.bank_leaves]),
+    }
+    blob = MAGIC + bytes([1]) + zlib.compress(codec.packb(doc), 6)
+    with open(path, "wb") as f:
+        f.write(blob)
+    return len(blob)
+
+
 def _dec_rows_pd(d: dict, table: np.ndarray) -> np.ndarray:
     """Decode a dictionary-encoded burst against the accumulated table."""
     B, W = d["sh"]

@@ -92,6 +92,23 @@ def untimed(log):
     return [{k: v for k, v in e.items() if k not in TIME_FIELDS} for e in log]
 
 
+# Wall-clock fields anywhere in an observability document: epoch spans,
+# delta events, control stats and deployment decision metrics.
+DOC_TIME_FIELDS = frozenset(TIME_FIELDS) | {
+    "apply_latency_us_max", "submitted_s", "queued_us", "total_us", "t_s",
+    "elapsed_us"}
+
+
+def untimed_doc(doc):
+    """``doc`` (nested dicts and lists) without its wall-clock fields."""
+    if isinstance(doc, dict):
+        return {k: untimed_doc(v) for k, v in doc.items()
+                if k not in DOC_TIME_FIELDS}
+    if isinstance(doc, (list, tuple)):
+        return [untimed_doc(v) for v in doc]
+    return doc
+
+
 def mesh_state(mesh) -> dict:
     """Everything a mesh run decides, for equality across packages:
     completion streams, drops, RETA, conservation, the epoch log and its

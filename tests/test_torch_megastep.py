@@ -330,3 +330,51 @@ def test_device_rings_match_reference(seed):
             ours["buf"][:nq * cap].numpy().view(np.uint32),
             np.asarray(theirs["buf"]))
     assert dropped > 0 and wrapped > 0  # tail drops and wrap-around happened
+
+
+def test_megastep_batched_retires_respect_sampler_and_stream_bounds(banks):
+    """Whole-megastep drains hand the deploy/obs taps a window's worth of
+    retires back to back: ``PacketSampler.max_pending`` must still bound
+    the labeling backlog, and ``TelemetryStream`` overflow accounting
+    must stay conserved (``next_sid == buffered + dropped_events``)."""
+    from repro_torch import deploy
+    from repro_torch.obs import TelemetryStream, attach
+
+    _, tb = banks
+    pool, labels = deploy.labeled_pool(samples_per_group=64, seed=0)
+    oracle = deploy.LabelOracle(pool, labels)
+    rt = DataplaneRuntime(tb, num_queues=NUM_QUEUES, strategy="fused",
+                          batch=16, ring_capacity=1024, megastep_ticks=8,
+                          device="cpu")
+    assert rt._mega is not None
+    max_pending = 3
+    sampler = deploy.PacketSampler(oracle, num_slots=NUM_SLOTS, per_tick=8,
+                                   max_pending=max_pending).attach(rt)
+    stream = TelemetryStream(capacity=4)  # tiny: force real overflow
+    attach(rt, stream)
+    flush_sizes = []
+    orig_flush = sampler.flush
+    sampler.flush = lambda: (flush_sizes.append(len(sampler._pending)),
+                             orig_flush())[-1]
+    rng = np.random.default_rng(0)
+    peak = 0
+    for _ in range(40):
+        idx = rng.integers(0, pool.shape[0], 48)
+        rt.dispatch(pkt.make_packets(
+            rng.integers(0, NUM_SLOTS, 48).astype(np.int32), pool[idx]))
+        rt.tick()
+        peak = max(peak, len(sampler._pending))
+    rt.drain()
+    peak = max(peak, len(sampler._pending))
+    sampler.detach()  # final flush
+    completed = rt.snapshot()["completed_total"]
+    assert completed > 0
+    assert sampler.seen == completed
+    # the backlog bound held across every batched retire burst
+    assert peak <= max_pending
+    assert max(flush_sizes, default=0) <= max_pending
+    assert sampler.labeled + sampler.unknown == sampler.sampled
+    # stream conservation: every event is either retained or counted out
+    s = stream.snapshot_stats()
+    assert s["next_sid"] == s["buffered"] + s["dropped_events"]
+    assert s["dropped_events"] > 0  # the tiny ring really overflowed

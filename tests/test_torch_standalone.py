@@ -29,6 +29,8 @@ QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 FIG8M = ROOT / "benchmarks_torch" / "fig8m_megastep.py"
 FIG10 = ROOT / "benchmarks_torch" / "fig10_mesh.py"
 FIG12 = ROOT / "benchmarks_torch" / "fig12_faults.py"
+FIG13 = ROOT / "benchmarks_torch" / "fig13_obs.py"
+FIG14 = ROOT / "benchmarks_torch" / "fig14_deploy.py"
 PAPER_FIGURES = [ROOT / "benchmarks_torch" / f"{name}.py" for name in (
     "fig4_runtime", "fig5_scaling", "fig6_slot_behavior", "fig7_fused",
     "table4_continuity", "table5_controlplane")]
@@ -96,6 +98,27 @@ def test_entry_points_raise_without_cuda(no_cuda):
             script.main([])
     # an explicit CPU request is honoured
     assert texecutor.init_bank(rng, 2, device="cpu")["w1p"].device.type == "cpu"
+
+
+def test_observability_and_deploy_raise_without_cuda(no_cuda, tmp_path):
+    """The new entry points default to the card too: the trainer, the
+    checkpoint restore and the fig13/fig14 scripts."""
+    from repro_torch.checkpoint import store
+    from repro_torch.deploy import OnlineTrainer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OnlineTrainer()
+    store.save(str(tmp_path), 0, {"x": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        store.restore(str(tmp_path), 0, {"x": torch.ones(2)}, device=None)
+    assert store.restore(str(tmp_path), 0, {"x": torch.ones(2)},
+                         device="cpu")[0]["x"].device.type == "cpu"
+    for path in (FIG13, FIG14):
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(script)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            script.main([])
 
 
 @pytest.mark.parametrize("alone", [False, True])

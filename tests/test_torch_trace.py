@@ -22,6 +22,7 @@ from repro.dataplane.workloads import trace as jtrace
 from repro_torch import codec
 from repro_torch.control import FailQueues, RestoreQueues, make_policy
 from repro_torch.core import bank as tbank
+from repro_torch.core import packet as tpkt
 from repro_torch.dataplane import DataplaneRuntime, MeshDataplane, workloads
 from repro_torch.dataplane.workloads import Phase, ChaosEvent
 from repro_torch.dataplane.workloads import trace as ttrace
@@ -364,3 +365,108 @@ def test_record_refuses_an_unregistered_policy(banks):
                           device="cpu")
     with pytest.raises(ValueError, match="non-registry policy"):
         workloads.record(rt).finish()
+
+
+# ---------------------------------------------------------------------------
+# the streaming codec and the v1 writer
+# ---------------------------------------------------------------------------
+
+def _packets(rng, n):
+    payload = rng.integers(0, 2**32, (n, 256), dtype=np.uint32)
+    return tpkt.make_packets(rng.integers(0, 2, n), payload)
+
+
+def _record_run(bank, path=None):
+    w = workloads.make_workload("emergency", num_slots=2, num_queues=4)
+    rendered = workloads.render(list(w.phases), num_slots=2, seed=3,
+                                num_queues=4, payload_pool=w.payload_pool)
+    rt = DataplaneRuntime(bank, num_queues=4, batch=128, ring_capacity=4096,
+                          record=True, device="cpu")
+    rec = workloads.record(rt, path=path)
+    workloads.play(rec, rendered, swap_delivery=_port_delivery)
+    return rec.finish(name="emergency", seed=3)
+
+
+def test_streamed_recording_matches_buffered_save(banks, tmp_path):
+    _, tb = banks
+    buffered = _record_run(tb)
+    buf_path = str(tmp_path / "buffered.bswt")
+    workloads.save(buffered, buf_path)
+    stream_path = str(tmp_path / "streamed.bswt")
+    streamed = _record_run(tb, path=stream_path)
+    assert isinstance(streamed, workloads.StreamedTrace)
+    assert streamed.steps == len(buffered.steps)
+    assert streamed.total_packets == buffered.total_packets
+    with open(buf_path, "rb") as f, open(stream_path, "rb") as g:
+        assert f.read() == g.read()
+    loaded = workloads.load(stream_path)
+    assert all(np.array_equal(s1["rows"], s2["rows"])
+               for s1, s2 in zip(buffered.steps, loaded.steps)
+               if s1["kind"] == "burst")
+    rep = workloads.replay(loaded, workloads.make_runtime(loaded, device="cpu"))
+    assert rep["ok"] and rep["digest_ok"]
+
+
+def test_v1_monolithic_traces_still_load(banks, tmp_path):
+    _, tb = banks
+    trace = _record_run(tb)
+    path = str(tmp_path / "old.bswt")
+    assert ttrace._save_v1(trace, path) == os.path.getsize(path)
+    with open(path, "rb") as f:
+        assert f.read(9)[-1] == 1  # genuinely on-disk v1
+    loaded = workloads.load(path)
+    rep = workloads.replay(loaded, workloads.make_runtime(loaded, device="cpu"))
+    assert rep["ok"] and rep["digest_ok"]
+    assert rep["digest"] == trace.expect["digest"]
+
+
+def test_save_v1_is_byte_equal_to_reference(banks, tmp_path):
+    """The port's v1 writer and the reference's, on the same trace (the
+    port's recording, and the reference's load of it), write the same
+    bytes; the reference loads the port's v1 file and replays it."""
+    _, tb = banks
+    trace = _record_run(tb)
+    v2 = str(tmp_path / "v2.bswt")
+    workloads.save(trace, v2)
+    ours, theirs = str(tmp_path / "ours_v1.bswt"), str(tmp_path / "ref_v1.bswt")
+    ttrace._save_v1(trace, ours)
+    jtrace._save_v1(jworkloads.load(v2), theirs)
+    with open(ours, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()
+    loaded = jworkloads.load(ours)
+    rep = jworkloads.replay(loaded, jworkloads.make_runtime(loaded))
+    assert rep["ok"] and rep["digest_ok"]
+
+
+def test_unfinished_streaming_recording_rejected(banks, tmp_path):
+    _, tb = banks
+    path = str(tmp_path / "partial.bswt")
+    rt = DataplaneRuntime(tb, num_queues=2, batch=64, ring_capacity=256,
+                          device="cpu")
+    rec = workloads.record(rt, path=path)
+    rng = np.random.default_rng(0)
+    for _ in range(40):  # enough bytes to flush at least one chunk
+        rec.dispatch(_packets(rng, 64))
+        rec.tick()
+    rec.abort()
+    with pytest.raises(ValueError, match="tail chunk"):
+        workloads.load(path)
+
+
+def test_streaming_recorder_bounds_buffering(banks, tmp_path):
+    """Chunks hit the disk DURING the run, not at finish()."""
+    _, tb = banks
+    path = str(tmp_path / "grow.bswt")
+    rt = DataplaneRuntime(tb, num_queues=2, batch=64, ring_capacity=1024,
+                          device="cpu")
+    rec = workloads.record(rt, path=path, chunk_bytes=1 << 14)
+    rng = np.random.default_rng(0)
+    sizes = []
+    for _ in range(12):
+        rec.dispatch(_packets(rng, 64))
+        rec.tick()
+        sizes.append(os.path.getsize(path))
+    assert sizes[-1] > sizes[0] > 0
+    rec.finish(name="grow", seed=0)
+    loaded = workloads.load(path)
+    assert loaded.meta["name"] == "grow"
