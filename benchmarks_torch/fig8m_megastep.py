@@ -20,14 +20,15 @@ the emergency runtime's shape.
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-if os.path.join(ROOT, "src") not in sys.path:
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from benchmarks_torch import common  # noqa: E402
 
 NUM_SLOTS, BATCH, BLOCK_B, RING = 4, 128, 32, 8192
 WINDOWS = (1, 8, 64)
@@ -72,26 +73,13 @@ def sweep(new_runtime, scenario, windows=WINDOWS, *, reps: int = 3) -> dict:
     return best
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--device", default=None, help="cuda (default) or cpu")
-    p.add_argument("--reps", type=int, default=3)
-    p.add_argument("--json", default=os.path.join(ROOT, "build", "fig8m_megastep.json"))
-    args = p.parse_args(argv)
-
+def run(dev, emit, reps: int = 3) -> None:
+    """The sweep and the structural audit on ``dev``, each number through
+    ``emit(name, value, note)``; raises if the audit fails."""
     import numpy as np
-    import torch
     from repro_torch.core import executor
     from repro_torch.dataplane import DataplaneRuntime, emergency_phases, render
-    from repro_torch.device import resolve_device
 
-    dev = resolve_device(args.device)
-    out = {"device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                      else "cpu")}
-    if dev.type == "cuda":
-        from chip_smoke import nvidia_smi
-        out["card"] = nvidia_smi("name,power.limit")
-        print(out["card"], flush=True)
     bank = executor.init_bank(np.random.default_rng(0), NUM_SLOTS, device=dev)
     scenario = render(emergency_phases(NUM_SLOTS), num_slots=NUM_SLOTS, seed=0)
 
@@ -101,33 +89,33 @@ def main(argv=None) -> int:
             block_b=BLOCK_B, ring_capacity=RING, megastep_ticks=w,
             device=dev, **kw)
 
-    def emit(key, value):
-        out[key] = value
-        print(f"{key} {value}", flush=True)
-
-    for w, run in sweep(factory(4), scenario, WINDOWS, reps=args.reps).items():
-        emit(f"fig8m.fused.q4.t{w}.kpps", run["kpps"])
+    for w, run_w in sweep(factory(4), scenario, WINDOWS, reps=reps).items():
+        emit(f"fig8m.fused.q4.t{w}.kpps", run_w["kpps"], f"best of {reps}")
     for q in (1, 2):
-        run = sweep(factory(q), scenario, (MEGASTEP_TICKS,), reps=args.reps)
-        emit(f"fig8m.fused.q{q}.t{MEGASTEP_TICKS}.kpps", run[MEGASTEP_TICKS]["kpps"])
+        best = sweep(factory(q), scenario, (MEGASTEP_TICKS,), reps=reps)
+        emit(f"fig8m.fused.q{q}.t{MEGASTEP_TICKS}.kpps",
+             best[MEGASTEP_TICKS]["kpps"], f"best of {reps}")
 
     # structural audit: a recorded sequential run and a recorded, audited
     # window run must give the same completion streams (sweep raises if not)
     seq = sweep(factory(4, record=True), scenario, (1,), reps=1)
     meg = sweep(factory(4, record=True, audit=True), scenario,
                 (MEGASTEP_TICKS,), reps=1)
-    emit("fig8m.audit.megastep_digest_mismatch",
-         int(seq[1]["digest"] != meg[MEGASTEP_TICKS]["digest"]))
-    emit("fig8m.audit.wrong_verdict", meg[MEGASTEP_TICKS]["wrong_verdict"])
-    if out["fig8m.audit.megastep_digest_mismatch"]:
+    mismatch = int(seq[1]["digest"] != meg[MEGASTEP_TICKS]["digest"])
+    emit("fig8m.audit.megastep_digest_mismatch", mismatch,
+         "expect=0 window == sequential loop")
+    emit("fig8m.audit.wrong_verdict", meg[MEGASTEP_TICKS]["wrong_verdict"], "expect=0")
+    if mismatch:
         raise RuntimeError("the window's completion streams differ from the sequential loop's")
-    os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
-    with open(args.json, "w") as f:
-        json.dump(out, f, indent=1)
-    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--reps", type=int, default=3)
+    args, rest = p.parse_known_args(argv)
+    return common.main(lambda dev, emit: run(dev, emit, args.reps), __doc__,
+                       "fig8m_megastep", rest)
 
 
 if __name__ == "__main__":
-    if ROOT not in sys.path:
-        sys.path.insert(0, ROOT)
     sys.exit(main())

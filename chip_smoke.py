@@ -163,7 +163,38 @@ Phases, in order; any failure raises and exits non-zero:
    conserved.  ``xnor_matmul``'s launches in (c) and (d) count under a row
    per batch size, checked and timed as the others; then
    ``benchmarks_torch/fig13_obs.py`` and ``fig14_deploy.py`` run once at
-   the reference's shapes (``obs_deploy_figures``).
+   the reference's shapes (``obs_deploy_figures``);
+8. drives the data-plane CLI (``run_cli_phase``), ``repro_torch.launch.
+   dataplane.main`` in this process (``SystemExit`` caught, output
+   captured, no ``--device``: the card is its default) at the paper's H32
+   width and the data plane's shape, ``--slots 16 --queues 4 --batch 2048
+   --ring-capacity 16384 --scale 16``, each run with the launch counts set
+   to 0 around it, ``--seed 0`` unless said: (a) ``--audit`` recorded to
+   ``build/cli/a.bswt``: kpps per phase, conservation, zero wrong
+   verdicts, continuity; (b) the same at
+   ``--megastep-ticks 8``, its trace's digest equal to (a)'s; (c) ``--hosts
+   2 --queues 2 --scenario crash-mid-commit --lease-ticks 4 --audit``:
+   every host conserves, a degraded commit is tagged; (d) ``--trace replay``
+   of (a)'s file with ``--audit``: ``digest_ok``; (e) ``--deploy-demo
+   promote`` and ``rollback`` at phase 7's warm-up 8, bake 8 and 24 steps,
+   ``--seed 1`` (at seed 0 the port's random slot 0 errs on more of the
+   bake window than the negated fine-tune less the canary's tolerance, so
+   ``rollback`` promotes): exactly the named decision, zero wrong
+   verdicts; (f) ``--slot-cache 32 --prefetch --audit``: the cache's hits,
+   misses and prefetch hits printed, zero wrong verdicts; (g) ``--observe 0 --observe-linger 2
+   --epoch-log-json``: one GET of ``/healthz`` while the server lingers, no
+   server thread left after, the epoch log parses; (h) ``--fanout vmap``
+   and ``--fanout shard_map`` (one group on one card) recorded: digests
+   equal to each other and to (a)'s.  The CLI keeps the runtime's default
+   ``block_b`` 32, so its fused launches count under three rows checked in
+   phase 3 at that block size (one queue's 2048 rows; the four queues
+   stacked, 8192 rows, for (h); the window slab for (b)), and
+   ``xnor_matmul``'s (the rollouts') under a row per batch size.  Then
+   ``python -m repro_torch.launch.dataplane --queues 4 --audit`` in a
+   subprocess (``PYTHONPATH=src``, the built kernels reused; seconds from
+   its start to its ``runtime:`` line), and ``benchmarks_torch``'s
+   ``fig8_dataplane``, ``fig9_control``, ``fig11_workloads`` and
+   ``fig15_swap`` once each (``cli_figures``).
 
 Lines printed before the last: the probe's binary-MMA rates (one JSON
 object, ``binary_mma_rates``), the data plane's kpps per phase, the swap
@@ -177,8 +208,8 @@ times are, against which the B = 1 row reads; the megastep sweep's kpps
 per phase and window, the tick split and the window profile; the mesh's
 lines (a to f), ``mesh_epoch_apply_us``, ``mesh_tick_profile`` and
 ``paper_figures``; phase 7's ``obs_stream``, ``obs_server``, ``deploy``,
-``checkpoint``, ``megastep_obs_deploy`` and ``obs_deploy_figures``.  The
-last line is
+``checkpoint``, ``megastep_obs_deploy`` and ``obs_deploy_figures``; phase
+8's ``cli``, ``cli_subprocess`` and ``cli_figures``.  The last line is
 ``{"ok": true, "device": {...}}``.
 A kernel's ``ms`` is its device time, from CUDA events around calls queued
 behind a busy-wait kernel; ``library_ms`` is taken the same way;
@@ -957,6 +988,248 @@ def run_obs_deploy_phase(*, counted, entries, dev, bank, dp_row, win_row, win_ke
     print(json.dumps({"obs_deploy_figures": out["figures"]}), flush=True)
 
 
+CLI_BLOCK_B = 32                   # the runtime's default, which the CLI keeps
+CLI_FIGURES = ("fig8_dataplane", "fig9_control", "fig11_workloads", "fig15_swap")
+CLI_LINGER_S = 2.0
+CLI_DEPLOY_SEED = 1                # (e)'s --seed: slot 0's baseline beats a negated model
+CLI_TIMEOUT_S = 300
+
+
+def cli_main(argv, dev, buf=None) -> tuple[str, int]:
+    """``repro_torch.launch.dataplane.main(argv)`` in this process, its
+    standard output captured (into ``buf`` when given): (output, exit
+    status).  On the card no ``--device`` is passed (the CLI's default is
+    the card)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import dataplane
+
+    buf, code = buf if buf is not None else io.StringIO(), 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            dataplane.main(list(argv) + ([] if dev.type == "cuda"
+                                         else ["--device", str(dev)]))
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+    return buf.getvalue(), code
+
+
+def run_cli_phase(*, counted, entries, dev, check_xnor, xnor_rows, out) -> None:
+    """Phase 8 (a to h of the module docstring): the data-plane CLI in
+    this process at the data plane's shape, each run with the launch counts
+    set to 0 around it; the fused kernel's launches count under the
+    CLI_BLOCK_B rows (one queue's batch, the stacked queues, the window) and
+    ``xnor_matmul``'s under a row per batch size, which ``check_xnor`` adds
+    for sizes no earlier part ran (inputs from ``xnor_rows(b)``).  Then the
+    shell entry point in a subprocess, and the four data-plane figures."""
+    import io
+    import re
+    import shutil
+    import threading
+    import urllib.request
+
+    from repro_torch.dataplane import workloads
+    from repro_torch.dataplane.megastep import EPOCH_CAPACITY, WINDOW_TAG
+
+    seq_key, win_key = "gather/meta16/actions", "gather/meta16/actions" + WINDOW_TAG
+    row = f"{seq_key}/K{K_DB}/B{DP_BATCH}/bb{CLI_BLOCK_B}"
+    stack_row = f"{seq_key}/K{K_DB}/B{DP_QUEUES * DP_BATCH}/bb{CLI_BLOCK_B}"
+    win_row = f"{seq_key}/K{K_DB}+{EPOCH_CAPACITY}{WINDOW_TAG}/bb{CLI_BLOCK_B}"
+    shape = ["--slots", str(K_DB), "--queues", str(DP_QUEUES), "--batch", str(DP_BATCH),
+             "--ring-capacity", str(DP_RING), "--scale", str(DP_SCALE)]
+    work = os.path.join(ROOT, "build", "cli")
+    os.makedirs(work, exist_ok=True)
+    path = lambda name: os.path.join(work, name)  # noqa: E731
+    xnor_launches: dict[int, int] = {}
+    res = {}
+
+    def run(label, argv, *, fused_row=row):
+        """One CLI run with the counts at 0 around it; returns its ``--json``
+        document (when asked for), its output and its launch counts."""
+        (text, code), n = counted(lambda: cli_main(argv, dev))
+        if code:
+            fail(f"cli {label}: exit {code}\n{text[-3000:]}")
+        entries[fused_row]["launches"] += n["fused"].get(seq_key, 0)
+        entries[win_row]["launches"] += n["fused"].get(win_key, 0)
+        for b, k in n["xnor"].items():
+            xnor_launches[b] = xnor_launches.get(b, 0) + k
+        doc = None
+        if "--json" in argv:
+            with open(argv[argv.index("--json") + 1]) as f:
+                doc = json.load(f)
+        return doc, text, n
+
+    def audited(label, doc):
+        snap = doc["snapshot"]
+        aud, cont = snap["conservation"], snap["continuity"]
+        if not aud["ok"] or aud["wrong_verdict"] or not cont["ok"]:
+            fail(f"cli {label}: conservation {aud['ok']}, wrong_verdict "
+                 f"{aud['wrong_verdict']}, continuity {cont['ok']}")
+        phases = doc["replay"]["phases"] if "replay" in doc else doc["phases"]
+        return {"kpps": {r["phase"]: r.get("kpps") for r in phases},
+                "totals": aud["totals"], "wrong_verdict": aud["wrong_verdict"],
+                "epochs": len(snap["control_log"])}
+
+    def digest_of(trace_path):
+        return workloads.load(trace_path).expect["digest"]["sha256"]
+
+    # a. audited, recorded (the trace is (d)'s)
+    doc, _, n = run("a", shape + ["--audit", "--trace", "record", path("a.bswt"),
+                                  "--json", path("a.json")])
+    res["a"] = audited("a", doc)
+    res["a"]["fused_launches"] = n["fused"].get(seq_key, 0)
+    # b. the megastep at window 8: the same checks and the same completion streams
+    doc, _, n = run("b", shape + ["--audit", "--megastep-ticks", str(WINDOW_TICKS),
+                                  "--trace", "record", path("b.bswt"),
+                                  "--json", path("b.json")])
+    res["b"] = audited("b", doc)
+    res["b"]["window_launches"] = n["fused"].get(win_key, 0)
+    if res["b"]["window_launches"] < 1:
+        fail("cli b: the megastep window never launched")
+    if digest_of(path("b.bswt")) != digest_of(path("a.bswt")):
+        fail("cli b: the window's completion streams differ from (a)'s")
+    # c. two hosts, a crash in the middle of a commit, a 4-tick lease
+    argv_c = shape + ["--hosts", "2", "--queues", "2", "--scenario", "crash-mid-commit",
+                      "--lease-ticks", "4", "--audit", "--json", path("c.json")]
+    doc, text, _ = run("c", argv_c)
+    res["c"] = audited("c", doc)
+    per_host = [h["ok"] for h in doc["snapshot"]["conservation"]["per_host"]]
+    modes = [e.get("commit_mode") for e in doc["control_log"]]
+    if not all(per_host) or "degraded" not in modes or "<degraded>" not in text:
+        fail(f"cli c: per-host ok {per_host}, commit modes {modes}")
+    res["c"].update(per_host_ok=per_host, commit_modes=modes)
+    # d. (a)'s trace replayed from the file
+    doc, _, _ = run("d", ["--trace", "replay", path("a.bswt"), "--audit",
+                          "--json", path("d.json")])
+    if not (doc["replay"]["ok"] and doc["replay"]["digest_ok"] is True):
+        fail(f"cli d: replay ok {doc['replay']['ok']}, digest_ok "
+             f"{doc['replay']['digest_ok']}, {doc['replay']['mismatches'][:3]}")
+    res["d"] = audited("d", doc)
+    res["d"]["digest_ok"] = True
+    # e. the scripted rollouts, at phase 7's warm-up, bake and steps.  The
+    # demo targets slot 0, a random model: at --seed 0 the port's slot 0
+    # errs on 0.912 of the bake window, so the negated fine-tune (0.932) is
+    # within the canary's 0.02 tolerance and 'rollback' promotes (the
+    # reference's rule; its own seed-0 bank differs).  CLI_DEPLOY_SEED's
+    # slot 0 errs on 0.595, below the negated candidate.
+    for demo, want in (("promote", "promoted"), ("rollback", "rolled_back")):
+        ckpt = path(f"ckpt-{demo}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        doc, _, n = run(f"e {demo}", shape + [
+            "--seed", str(CLI_DEPLOY_SEED),
+            "--deploy-demo", demo, "--deploy-warmup-ticks", str(DEPLOY_WARMUP),
+            "--deploy-bake-ticks", str(DEPLOY_BAKE), "--deploy-steps", str(DEPLOY_STEPS),
+            "--checkpoint-dir", ckpt, "--json", path(f"e-{demo}.json")])
+        res[f"e_{demo}"] = audited(f"e {demo}", doc)
+        events = [d["event"] for d in doc["snapshot"]["deployments"]]
+        terminal = [e for e in events if e in ("promoted", "rolled_back")]
+        if terminal != [want]:
+            fail(f"cli e {demo}: deploy events {events}")
+        res[f"e_{demo}"].update(events=events, xnor_launches=dict(n["xnor"]))
+    # f. the slot cache: 32 models over the 16 slots, with the prefetcher
+    doc, text, _ = run("f", shape + ["--slot-cache", "32", "--prefetch", "--audit",
+                                     "--json", path("f.json")])
+    res["f"] = audited("f", doc)
+    cs = doc["snapshot"]["slot_cache"]
+    line = next((ln for ln in text.splitlines() if ln.startswith("slot-cache: ")
+                 and "hits=" in ln), "")
+    if (not line or "misses=" not in line or "prefetch=" not in line
+            or not cs["hits"] + cs["misses"]):
+        fail(f"cli f: slot-cache line {line!r}, stats {cs}")
+    res["f"]["slot_cache"] = cs
+    # g. the observe server: one GET of /healthz while it lingers
+    log_json = path("g-epochs.json")
+    if os.path.exists(log_json):
+        os.unlink(log_json)
+    argv_g = shape + ["--observe", "0", "--observe-linger", str(CLI_LINGER_S),
+                      "--epoch-log-json", log_json]
+    got, buf = {}, io.StringIO()
+
+    def serve():
+        try:
+            got["result"] = counted(lambda: cli_main(argv_g, dev, buf))
+        except Exception as e:  # raised again below, in the main thread
+            got["error"] = e
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=serve)
+    th.start()
+    # the epoch log is written, then "lingering" printed, then the linger
+    while "observe: lingering" not in buf.getvalue() and th.is_alive():
+        time.sleep(0.02)
+    healthz, port = None, None
+    m = re.search(r"observe: http://[^:/]+:(\d+)/", buf.getvalue())
+    if th.is_alive() and m:
+        port = int(m.group(1))
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=10) as r:
+            healthz = json.loads(r.read())
+    th.join(timeout=CLI_TIMEOUT_S)
+    if th.is_alive():
+        fail("cli g: the run did not end")
+    if "error" in got:
+        raise got["error"]
+    (text, code), n = got["result"]
+    entries[row]["launches"] += n["fused"].get(seq_key, 0)
+    if code or healthz != {"ok": True, "port": port}:
+        fail(f"cli g: exit {code}, /healthz {healthz} on port {port}")
+    if any(t.name == "obs-server" and t.is_alive() for t in threading.enumerate()):
+        fail("cli g: the observe server outlived the run")
+    with open(log_json) as f:
+        epochs = json.load(f)
+    if not epochs["epochs"] or not epochs["continuity"]["ok"]:
+        fail("cli g: the epoch log is empty or its continuity broken")
+    res["g"] = {"healthz": healthz, "epochs": len(epochs["epochs"]),
+                "wall_s": time.perf_counter() - t0}
+    # h. the shard_map fan-out (one group on one card) against vmap
+    digests = {}
+    for fanout in ("vmap", "shard_map"):
+        doc, _, n = run(f"h {fanout}", shape + [
+            "--fanout", fanout, "--audit", "--trace", "record", path(f"h-{fanout}.bswt"),
+            "--json", path(f"h-{fanout}.json")], fused_row=stack_row)
+        res[f"h_{fanout}"] = audited(f"h {fanout}", doc)
+        digests[fanout] = digest_of(path(f"h-{fanout}.bswt"))
+    if digests["shard_map"] != digests["vmap"] or digests["vmap"] != digest_of(path("a.bswt")):
+        fail(f"cli h: completion streams differ: {digests}")
+
+    for b, k in sorted(xnor_launches.items()):
+        if f"xnor/B{b}" not in entries:
+            check_xnor(*xnor_rows(b))
+        entries[f"xnor/B{b}"]["launches"] += k
+    res["xnor_launches"] = xnor_launches
+    out["runs"] = res
+    print(json.dumps({"cli": res}), flush=True)
+
+    # the shell entry point, reusing the kernels built above
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dataplane", "--queues", "4", "--audit"]
+        + ([] if dev.type == "cuda" else ["--device", str(dev)]),
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, ready_s = [], None
+    try:
+        for ln in proc.stdout:
+            lines.append(ln)
+            if ready_s is None and ln.startswith("runtime: "):
+                ready_s = time.perf_counter() - t0
+        code = proc.wait(timeout=CLI_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(lines)
+    if code or "ok=True wrong_verdict=0" not in text or "continuity ok=True" not in text:
+        fail(f"cli subprocess: exit {code}\n{text[-3000:]}")
+    out["subprocess"] = {"start_to_runtime_ready_s": ready_s,
+                         "wall_s": time.perf_counter() - t0}
+    print(json.dumps({"cli_subprocess": out["subprocess"]}), flush=True)
+
+    out["figures"] = run_paper_figures(dev, CLI_FIGURES)
+    print(json.dumps({"cli_figures": out["figures"]}), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1102,13 +1375,31 @@ def main() -> int:
     x_win = packets_for(rng, K_DB, WINDOW_TICKS * DP_QUEUES * DP_BATCH)
     es_win = torch.from_numpy(rng.integers(0, k_ext, x_win.shape[0])).to(dev)
     g_win = bank_lib.group_by_slot_padded(es_win, k_ext, BLOCK_B)
+    bank_win = executor.init_bank(rng, k_ext, device=dev)
     fused_cases.append((f"{K_DB}+{megastep.EPOCH_CAPACITY}", megastep.WINDOW_TAG,
-                        executor.init_bank(rng, k_ext, device=dev), g_win,
-                        "gather/meta16/actions", x_win, g_win.row_ids, 16, True))
+                        bank_win, g_win, "gather/meta16/actions", x_win, g_win.row_ids,
+                        16, True))
+    # The CLI's runtimes keep the runtime's default block_b (CLI_BLOCK_B):
+    # one queue's batch, the four queues stacked (the vmap and shard_map
+    # fan-outs), and the window slab, each grouped at that block size.
+    x_st = packets_for(np.random.default_rng(DP_QUEUES * DP_BATCH), K_DB,
+                       DP_QUEUES * DP_BATCH)
+    for xin, es, k, bank, shape in (
+            (x_dp, pkt.slot_of(x_dp, K_DB), K_DB, banks[K_DB][0],
+             f"/B{DP_BATCH}/bb{CLI_BLOCK_B}"),
+            (x_st, pkt.slot_of(x_st, K_DB), K_DB, banks[K_DB][0],
+             f"/B{DP_QUEUES * DP_BATCH}/bb{CLI_BLOCK_B}"),
+            (x_win, es_win, f"{K_DB}+{megastep.EPOCH_CAPACITY}", bank_win,
+             f"{megastep.WINDOW_TAG}/bb{CLI_BLOCK_B}")):
+        g = bank_lib.group_by_slot_padded(es, bank["b1"].shape[0], CLI_BLOCK_B)
+        fused_cases.append((k, shape, bank, g, "gather/meta16/actions", xin,
+                            g.row_ids, 16, True))
     for k, shape, bank, g, variant, xin, rows, meta, act in fused_cases:
-        name = f"fused_forward {variant} K={k}" + (f" B={xin.shape[0]}" if shape else "")
+        bb = g.b_pad // g.block_slots.numel()
+        name = (f"fused_forward {variant} K={k}" + (f" B={xin.shape[0]}" if shape else "")
+                + (f" block_b={bb}" if bb != BLOCK_B else ""))
         bank_args = (bank["w1p"], bank["b1"], bank["w2"], bank["b2"])
-        kw = dict(block_b=BLOCK_B, meta_words=meta, with_actions=act)
+        kw = dict(block_b=bb, meta_words=meta, with_actions=act)
         run_k = lambda: ff.fused_forward(xin, *bank_args, g.block_slots, rows, **kw)  # noqa: E731
         run_p = lambda: ff.fused_forward_ref(xin, *bank_args, g.block_slots, rows, **kw)  # noqa: E731
         got, want = run_k(), run_p()
@@ -1719,8 +2010,8 @@ def main() -> int:
         win_row=win_row, win_key=win_key, out=mesh_out)
     end_to_end["mesh"] = mesh_out
 
-    for e in entries.values():
-        if e["launches"] < 1:
+    for key, e in entries.items():
+        if e["launches"] < 1 and not key.endswith(f"/bb{CLI_BLOCK_B}"):  # phase 8's
             fail(f"{e['name']} was not launched on the main path")
 
     # -- 5. where the time goes -----------------------------------------------
@@ -1828,6 +2119,17 @@ def main() -> int:
                          dp_row=dp_row, win_row=win_row, win_key=win_key,
                          check_xnor=check_xnor, out=obs_out)
     end_to_end["obs_deploy"] = {k: obs_out[k] for k in ("stream", "deploy", "checkpoint")}
+
+    # -- 8. the data-plane CLI ---------------------------------------------------
+    def xnor_rows(b):
+        payload = pkt.payload_of(banks[2][1])
+        return (payload.repeat(-(-b // payload.shape[0]), 1)[:b],
+                banks[2][0]["w1p"][0])
+
+    cli_out = {}
+    run_cli_phase(counted=counted, entries=entries, dev=dev, check_xnor=check_xnor,
+                  xnor_rows=xnor_rows, out=cli_out)
+    end_to_end["cli"] = cli_out
     for e in entries.values():
         if e["launches"] < 1:
             fail(f"{e['name']} was not launched on the main path")

@@ -14,6 +14,8 @@ rows (their 16-byte loads), the data plane's batch (B = 2048, K = 16),
 kernels ragged blocks, D and H, row tiles that would cross a block, H past
 the wgmma column tile, out-of-range slot ids and both dtypes; each
 banked_matmul case checks the variant that ran (``matmul_variant``).
+Last, one run of the data-plane CLI on the card, its every tick served by
+the fused kernel.
 """
 
 import numpy as np
@@ -229,3 +231,20 @@ def test_banked_kernels_reject_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="one device"):
         bm.banked_matmul(x, torch.zeros(2, 4, 3), torch.zeros(2, 3, device=dev),
                          slots, block_b=8)
+
+
+def test_dataplane_cli_on_the_card(dev, tmp_path):
+    """``python -m repro_torch.launch.dataplane --queues 4 --audit`` in
+    process, on its default device: conserved, no wrong verdict, and the
+    fused kernel launched (one launch per live queue per tick)."""
+    import json
+
+    from repro_torch.launch import dataplane
+
+    ff.fused_forward.launches.clear()
+    out = tmp_path / "report.json"
+    dataplane.main(["--queues", "4", "--audit", "--json", str(out)])
+    doc = json.loads(out.read_text())
+    aud = doc["snapshot"]["conservation"]
+    assert aud["ok"] and aud["wrong_verdict"] == 0 and doc["continuity"]["ok"]
+    assert ff.fused_forward.launches.get("gather/meta16/actions", 0) > 0

@@ -26,6 +26,7 @@ from repro_torch.train import bnn
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
+PIPELINE_EXAMPLE = ROOT / "examples" / "packet_pipeline_torch.py"
 FIG8M = ROOT / "benchmarks_torch" / "fig8m_megastep.py"
 FIG10 = ROOT / "benchmarks_torch" / "fig10_mesh.py"
 FIG12 = ROOT / "benchmarks_torch" / "fig12_faults.py"
@@ -34,8 +35,10 @@ FIG14 = ROOT / "benchmarks_torch" / "fig14_deploy.py"
 PAPER_FIGURES = [ROOT / "benchmarks_torch" / f"{name}.py" for name in (
     "fig4_runtime", "fig5_scaling", "fig6_slot_behavior", "fig7_fused",
     "table4_continuity", "table5_controlplane")]
+DATAPLANE_FIGURES = [ROOT / "benchmarks_torch" / f"{name}.py" for name in (
+    "fig8_dataplane", "fig9_control", "fig11_workloads", "fig15_swap", "run")]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", QUICKSTART] + sorted(
+    ROOT / "chip_smoke.py", QUICKSTART, PIPELINE_EXAMPLE] + sorted(
     (ROOT / "benchmarks_torch").glob("*.py"))
 
 
@@ -114,6 +117,23 @@ def test_observability_and_deploy_raise_without_cuda(no_cuda, tmp_path):
     assert store.restore(str(tmp_path), 0, {"x": torch.ones(2)},
                          device="cpu")[0]["x"].device.type == "cpu"
     for path in (FIG13, FIG14):
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(script)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            script.main([])
+
+
+def test_cli_figures_and_suite_raise_without_cuda(no_cuda):
+    """The data-plane CLI, the four data-plane figures, the suite runner
+    and the pipeline example default to the card too."""
+    from repro_torch.launch import dataplane
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dataplane.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dataplane.main(["--trace", "replay", "missing.bswt"])
+    for path in (*DATAPLANE_FIGURES, FIG8M, PIPELINE_EXAMPLE):
         spec = importlib.util.spec_from_file_location(path.stem, path)
         script = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(script)
