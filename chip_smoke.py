@@ -194,7 +194,31 @@ Phases, in order; any failure raises and exits non-zero:
    subprocess (``PYTHONPATH=src``, the built kernels reused; seconds from
    its start to its ``runtime:`` line), and ``benchmarks_torch``'s
    ``fig8_dataplane``, ``fig9_control``, ``fig11_workloads`` and
-   ``fig15_swap`` once each (``cli_figures``).
+   ``fig15_swap`` once each (``cli_figures``);
+9. serves LMs on the card (``run_lm_serve_phase``), each part with the
+   launch counts set to 0 around it and failing if any BNN kernel was
+   launched (the LM path reaches none): (a) smollm-360m at its published
+   width and depth in f32 (random weights, ``api.init`` seed 0) through
+   ``ServeEngine(max_batch=8, max_seq=512)``, 8 requests of 4-48 prompt
+   tokens and 8 new tokens, each output held against the card's own
+   no-cache greedy decode through ``api.apply`` (a token may differ only
+   where the greedy top-2 logit margin is under ``margin_bound``, derived
+   from f32's unit roundoff and the depth); (e) on the same weights, 10
+   decode steps with the int8 KV cache against the full-precision one:
+   relative logit error under 0.05, the cache bytes of each; (c) the
+   adapter bank (``bank_mode="adapter"``, 2 slots, slot 1's ``b`` drawn
+   from a generator seeded 7): one prompt on slots 0 and 1 gives two
+   outputs, each its slot's greedy decode; (b) the published bf16 model on
+   (a)'s requests: tokens/s of a second run, prefill ms per bucket, decode
+   ms per tick at batch 8, peak device memory, and ``profile_step`` of a
+   decode tick; (d) mamba2-130m at full width and depth in f32, with two
+   prompts past one 256-token SSD chunk, against greedy as in (a); (f)
+   every other arch of ``ARCH_IDS`` (but the encoder-decoder) at
+   ``reduced()`` in f32 (MoE at capacity factor 16), one engine run each
+   against greedy; (g) ``python -m repro_torch.launch.serve`` in three
+   subprocesses at once: its defaults and ``--arch mamba2-130m`` print the
+   ``served`` and ``latency`` lines and exit 0, ``--arch
+   seamless-m4t-medium`` exits non-zero, as the reference's does.
 
 Lines printed before the last: the probe's binary-MMA rates (one JSON
 object, ``binary_mma_rates``), the data plane's kpps per phase, the swap
@@ -209,7 +233,8 @@ per phase and window, the tick split and the window profile; the mesh's
 lines (a to f), ``mesh_epoch_apply_us``, ``mesh_tick_profile`` and
 ``paper_figures``; phase 7's ``obs_stream``, ``obs_server``, ``deploy``,
 ``checkpoint``, ``megastep_obs_deploy`` and ``obs_deploy_figures``; phase
-8's ``cli``, ``cli_subprocess`` and ``cli_figures``.  The last line is
+8's ``cli``, ``cli_subprocess`` and ``cli_figures``; phase 9's
+``lm_serve ...`` lines and its ``lm_serve`` object.  The last line is
 ``{"ok": true, "device": {...}}``.
 A kernel's ``ms`` is its device time, from CUDA events around calls queued
 behind a busy-wait kernel; ``library_ms`` is taken the same way;
@@ -1230,6 +1255,294 @@ def run_cli_phase(*, counted, entries, dev, check_xnor, xnor_rows, out) -> None:
     print(json.dumps({"cli_figures": out["figures"]}), flush=True)
 
 
+LM_ARCH, SSM_ARCH = "smollm-360m", "mamba2-130m"
+LM_BATCH, LM_SEQ = 8, 512          # ServeEngine(max_batch, max_seq) of (a) to (d)
+LM_NEW = 8                         # new tokens per request
+LM_SSM_LONG = (300, 450)           # (d)'s prompts past one 256-token SSD chunk
+LM_INT8_STEPS, LM_INT8_REL = 10, 0.05   # (e): the reference's bound (test_int8_cache.py)
+LM_PROFILE_NEW = 100               # (b)'s profiled engine: rows stay active
+
+
+def run_lm_serve_phase(*, counted, dev, out) -> None:
+    """Phase 9 (a to g of the module docstring): the LM serving path on the
+    card, each part with the BNN kernels' launch counts set to 0 around it
+    (the serving path launches none of them)."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    def part(label, fn):
+        result, n = counted(fn)
+        launched = {k: v for k, v in n.items() if v}
+        if launched:
+            fail(f"lm_serve {label}: BNN kernels launched on the LM path: {launched}")
+        return result
+
+    def requests(cfg, seed, lengths=None, n=LM_BATCH, new=LM_NEW):
+        """(prompt, slot, new tokens) per request: prompts of 4-48 tokens."""
+        rng = np.random.default_rng(seed)
+        lengths = lengths or [int(x) for x in rng.integers(4, 49, n)]
+        slots = max(cfg.bank_slots, 1)
+        return [(rng.integers(0, cfg.vocab_size, m).tolist(), i % slots, new)
+                for i, m in enumerate(lengths)]
+
+    def serve(params, cfg, reqs, **kw):
+        eng = ServeEngine(params, cfg, device=dev, **kw)
+        for i, (prompt, slot, new) in enumerate(reqs):
+            eng.submit(Request(rid=i, prompt=prompt, slot_id=slot, max_new_tokens=new))
+        fins = eng.run_until_done()
+        torch.cuda.synchronize()
+        if len(fins) != len(reqs) or any(f.rejected for f in fins):
+            fail(f"lm_serve: {len(fins)} of {len(reqs)} requests finished")
+        outs = {f.rid: f.output for f in fins}
+        for rid, o in outs.items():
+            if len(o) != reqs[rid][2] or not all(0 <= t < cfg.vocab_size for t in o):
+                fail(f"lm_serve: request {rid} gave {o}")
+        return outs, eng
+
+    def margin_bound(cfg, logit_max):
+        """The engine and the greedy decode sum every logit in other orders
+        (cached K/V, bucket padding, one query row against the whole
+        prompt).  Each of the n_layers + 1 stages adds a relative error of
+        at most lambda * sqrt(K) * u (K its longest dot product, u f32's
+        unit roundoff, lambda = 10), and both paths err: a top-2 margin
+        above twice that times the largest |logit| cannot flip."""
+        k = max(cfg.d_model, cfg.d_ff, cfg.d_inner if cfg.ssm_state else 0)
+        return (2 * PROB_LAMBDA * math.sqrt(k) * F32_UNIT_ROUNDOFF
+                * (cfg.n_layers + 1) * logit_max)
+
+    @torch.inference_mode()
+    def greedy(params, cfg, prompt, new, slot):
+        toks, got, margins, logit_max = list(prompt), [], [], 0.0
+        for _ in range(new):
+            batch = {"tokens": torch.tensor([toks], device=dev)}
+            if slot is not None:
+                batch["slot_ids"] = torch.tensor([slot], device=dev)
+            logits, _ = api.apply(params, batch, cfg)
+            last = logits[0, -1, :cfg.vocab_size]
+            top = torch.topk(last, 2)
+            got.append(int(top.indices[0]))
+            margins.append(float(top.values[0] - top.values[1]))
+            logit_max = max(logit_max, float(last.abs().max()))
+            toks.append(got[-1])
+        return got, margins, logit_max
+
+    def check_greedy(label, params, cfg, reqs, outs):
+        """Every output equals the no-cache greedy decode through
+        ``api.apply``; a token may differ only where the greedy top-2
+        margin at the first difference is under ``margin_bound``."""
+        routed = cfg.bank_mode in ("adapter", "head")
+        worst, bound, differ = math.inf, 0.0, []
+        for rid, (prompt, slot, new) in enumerate(reqs):
+            want, margins, logit_max = greedy(params, cfg, prompt, new,
+                                              slot if routed else None)
+            bound = max(bound, margin_bound(cfg, logit_max))
+            first = next((i for i, (a, b) in enumerate(zip(outs[rid], want)) if a != b),
+                         None)
+            worst = min(worst, min(margins if first is None else margins[:first + 1]))
+            if first is not None:
+                if margins[first] > margin_bound(cfg, logit_max):
+                    fail(f"lm_serve {label}: request {rid} differs from greedy at "
+                         f"token {first} where the top-2 margin is {margins[first]:.4g}")
+                differ.append({"rid": rid, "token": first, "margin": margins[first]})
+        res = {"requests": len(reqs), "equal_to_greedy": len(reqs) - len(differ),
+               "min_top2_margin": worst, "margin_bound": bound, "differ": differ}
+        print(f"lm_serve {label}: {res['equal_to_greedy']}/{len(reqs)} equal to greedy, "
+              f"min top-2 margin {worst:.4g} (bound {bound:.4g})", flush=True)
+        return res
+
+    def free(*names):
+        for name in names:
+            held.pop(name, None)
+        torch.cuda.empty_cache()
+
+    res = {"card": nvidia_smi("name,power.limit")}
+    held = {}
+    published = get_config(LM_ARCH)
+    f32 = dataclasses.replace(published, dtype="float32", remat="none")
+
+    # a. smollm-360m at full width and depth, f32: the engine against greedy
+    def a():
+        t0 = time.perf_counter()
+        held["f32"] = api.init(0, f32, device=dev)
+        reqs = requests(f32, 0)
+        outs, _ = serve(held["f32"], f32, reqs, max_batch=LM_BATCH, max_seq=LM_SEQ)
+        r = check_greedy("a smollm-360m f32", held["f32"], f32, reqs, outs)
+        r["params"] = sum(p.numel() for p in held["f32"].parameters())
+        r["wall_s"] = time.perf_counter() - t0
+        return r
+    res["a_smollm_f32"] = part("a", a)
+
+    # e. the int8 KV cache on the same f32 weights: 10 decode steps
+    def e():
+        f32_8 = dataclasses.replace(f32, cache_dtype="int8")
+        caches = {c.cache_dtype: api.init_cache(c, 2, 32, device=dev) for c in (f32, f32_8)}
+        nbytes = {k: sum(t.numel() * t.element_size() for t in c.values())
+                  for k, c in caches.items()}
+        toks = np.random.default_rng(5).integers(0, f32.vocab_size, LM_INT8_STEPS)
+        worst = 0.0
+        with torch.inference_mode():
+            for i, t in enumerate(toks):
+                tt = torch.full((2, 1), int(t), device=dev)
+                lg = {}
+                for c in (f32, f32_8):
+                    lg[c.cache_dtype], caches[c.cache_dtype] = api.decode_step(
+                        held["f32"], tt, caches[c.cache_dtype], i, c)
+                rel = float((lg["model"] - lg["int8"]).abs().max()
+                            / (lg["model"].abs().max() + 1e-9))
+                worst = max(worst, rel)
+        if not worst < LM_INT8_REL:
+            fail(f"lm_serve e: int8 cache relative logit error {worst:.4g}")
+        r = {"steps": LM_INT8_STEPS, "max_rel_logit_err": worst, "bound": LM_INT8_REL,
+             "cache_bytes": nbytes["model"], "int8_cache_bytes": nbytes["int8"],
+             "int8_dots": "exact integer sums in f32 (QK, n*127^2 < 2^24) or f64 (PV beyond)"}
+        print(f"lm_serve e int8 cache: max rel logit err {worst:.4g} < {LM_INT8_REL}; "
+              f"cache bytes {nbytes['model']} -> {nbytes['int8']}", flush=True)
+        return r
+    res["e_int8_cache"] = part("e", e)
+    free("f32")
+
+    # c. the adapter bank at full width: slot 1's b bumped from a seeded draw
+    def c():
+        cfg = dataclasses.replace(f32, bank_mode="adapter", bank_slots=2)
+        held["bank"] = params = api.init(0, cfg, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        with torch.no_grad():
+            for name, p in params.named_parameters():
+                if name.endswith("adapter.b"):
+                    p[1] = torch.randn(p.shape[1:], generator=gen, device=dev) * 0.5
+        prompt = requests(cfg, 1, n=1)[0][0]
+        reqs = [(prompt, 0, LM_NEW), (prompt, 1, LM_NEW)]
+        outs, _ = serve(params, cfg, reqs, max_batch=LM_BATCH, max_seq=LM_SEQ)
+        if outs[0] == outs[1]:
+            fail("lm_serve c: slots 0 and 1 gave the same output")
+        r = check_greedy("c adapter bank", params, cfg, reqs, outs)
+        r["outputs"] = [outs[0], outs[1]]
+        return r
+    res["c_adapter_bank"] = part("c", c)
+    free("bank")
+
+    # b. the published dtype, bf16: rate, prefill and decode times, memory,
+    # and where one decode tick at batch 8 spends its time
+    def b():
+        params = held["bf16"] = api.init(0, published, device=dev)
+        reqs = requests(published, 0)
+        serve(params, published, reqs, max_batch=LM_BATCH, max_seq=LM_SEQ)  # warm-up
+        torch.cuda.reset_peak_memory_stats(dev)
+        start_bytes = torch.cuda.memory_allocated(dev)  # the weights and what earlier phases hold
+        t0 = time.perf_counter()
+        outs, eng = serve(params, published, reqs, max_batch=LM_BATCH, max_seq=LM_SEQ)
+        wall = time.perf_counter() - t0
+        tokens = sum(len(o) for o in outs.values())
+        peak = torch.cuda.max_memory_allocated(dev)
+        r = {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+             "ticks": eng.ticks, "peak_memory_gb": peak / 1e9,
+             "peak_above_start_gb": (peak - start_bytes) / 1e9,
+             "weights_gb": sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9}
+        prefill_ms = {}
+        for bucket in eng.buckets:
+            prompt = requests(published, bucket, [bucket], n=1)[0][0]
+            times = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                eng._prefill(bucket, prompt, 0)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            prefill_ms[bucket] = float(np.median(times[1:]))
+        r["prefill_ms_per_bucket"] = prefill_ms
+        busy = requests(published, 3, new=LM_PROFILE_NEW)
+        eng = ServeEngine(params, published, device=dev, max_batch=LM_BATCH, max_seq=LM_SEQ)
+        for i, (prompt, slot, new) in enumerate(busy):
+            eng.submit(Request(rid=i, prompt=prompt, slot_id=slot, max_new_tokens=new))
+        eng.step()  # admits all 8
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            if eng.step() != LM_BATCH:
+                fail("lm_serve b: a row retired inside the timed ticks")
+            times.append((time.perf_counter() - t0) * 1e3)
+        r["decode_ms_per_tick"] = float(np.median(times))
+        r["decode_tick_profile"] = profile_step(eng.step, iters=20)
+        if int(eng.active.sum()) != LM_BATCH:
+            fail("lm_serve b: a row retired inside the profiled ticks")
+        print(f"lm_serve b smollm-360m bf16: {r['tokens_per_s']:.1f} tok/s, decode "
+              f"{r['decode_ms_per_tick']:.2f} ms/tick, prefill ms {prefill_ms}, idle "
+              f"{r['decode_tick_profile']['device_idle_share']:.3f}, peak "
+              f"{r['peak_memory_gb']:.3f} GB", flush=True)
+        return r
+    res["b_smollm_bf16"] = part("b", b)
+    free("bf16")
+
+    # d. mamba2-130m at full width and depth, f32; two prompts past one chunk
+    def d():
+        cfg = dataclasses.replace(get_config(SSM_ARCH), dtype="float32", remat="none")
+        params = held["ssm"] = api.init(0, cfg, device=dev)
+        short = requests(cfg, 4, n=LM_BATCH - len(LM_SSM_LONG))
+        reqs = short + requests(cfg, 5, list(LM_SSM_LONG), n=len(LM_SSM_LONG))
+        t0 = time.perf_counter()
+        outs, _ = serve(params, cfg, reqs, max_batch=LM_BATCH, max_seq=LM_SEQ)
+        r = check_greedy("d mamba2-130m f32", params, cfg, reqs, outs)
+        r["params"] = sum(p.numel() for p in params.parameters())
+        r["prompt_lengths"] = [len(q[0]) for q in reqs]
+        r["wall_s"] = time.perf_counter() - t0
+        return r
+    res["d_mamba2_f32"] = part("d", d)
+    free("ssm")
+
+    # f. every other arch at reduced(), f32, one engine run each
+    def f():
+        runs = {}
+        for arch in ARCH_IDS:
+            if arch in ("boundswitch-h32", LM_ARCH, SSM_ARCH, "seamless-m4t-medium"):
+                continue
+            over = {"moe_capacity_factor": 16.0} if get_config(arch).family == "moe" else {}
+            cfg = get_config(arch).reduced(remat="none", dtype="float32", **over)
+            params = api.init(0, cfg, device=dev)
+            reqs = requests(cfg, 6, [5, 9, 17], n=3, new=5)
+            outs, _ = serve(params, cfg, reqs, max_batch=4, max_seq=64,
+                            prefill_buckets=(8, 32))
+            runs[arch] = check_greedy(f"f {arch} reduced", params, cfg, reqs, outs)
+        return runs
+    res["f_reduced"] = part("f", f)
+
+    # g. the shell entry point: defaults, mamba2-130m, and seamless (fails)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    extra = [] if dev.type == "cuda" else ["--device", str(dev)]
+    runs = {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *argv, *extra], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, argv in (("defaults", []), (SSM_ARCH, ["--arch", SSM_ARCH]),
+                           ("seamless-m4t-medium", ["--arch", "seamless-m4t-medium"]))}
+    g = {}
+    try:
+        for name, proc in runs.items():
+            stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+            g[name] = {"exit": proc.returncode, "lines": stdout.strip().splitlines(),
+                       "stderr_tail": stderr.strip().splitlines()[-1:]}
+    finally:
+        for proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name in ("defaults", SSM_ARCH):
+        lines = g[name]["lines"]
+        if g[name]["exit"] or len(lines) != 2 or not lines[0].startswith("served 16 requests") \
+                or not lines[1].startswith("latency "):
+            fail(f"lm_serve g: launcher {name}: {g[name]}")
+    if g["seamless-m4t-medium"]["exit"] == 0:
+        fail("lm_serve g: the launcher served the encoder-decoder")
+    res["g_launcher"] = g
+    print(f"lm_serve g launcher: {g}", flush=True)
+    out.update(res)
+    print(json.dumps({"lm_serve": res}), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2130,6 +2443,12 @@ def main() -> int:
     run_cli_phase(counted=counted, entries=entries, dev=dev, check_xnor=check_xnor,
                   xnor_rows=xnor_rows, out=cli_out)
     end_to_end["cli"] = cli_out
+
+    # -- 9. LM serving ------------------------------------------------------------
+    lm_out = {}
+    run_lm_serve_phase(counted=counted, dev=dev, out=lm_out)
+    end_to_end["lm_serve"] = {k: lm_out[k] for k in ("a_smollm_f32", "b_smollm_bf16",
+                                                    "d_mamba2_f32")}
     for e in entries.values():
         if e["launches"] < 1:
             fail(f"{e['name']} was not launched on the main path")

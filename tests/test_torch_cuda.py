@@ -248,3 +248,33 @@ def test_dataplane_cli_on_the_card(dev, tmp_path):
     aud = doc["snapshot"]["conservation"]
     assert aud["ok"] and aud["wrong_verdict"] == 0 and doc["continuity"]["ok"]
     assert ff.fused_forward.launches.get("gather/meta16/actions", 0) > 0
+
+
+def test_serve_engine_on_the_card(dev):
+    """A reduced smollm-360m (f32) served on the card by ``ServeEngine``
+    built without a device: each output is the card's own no-cache greedy
+    decode through ``api.apply``, and no BNN kernel is launched."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config("smollm-360m").reduced(remat="none", dtype="float32")
+    params = api.init(0, cfg)
+    assert params.embed.embedding.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 9, 17)]
+    ff.fused_forward.launches.clear()
+    bm.banked_matmul.launches.clear()
+    eng = ServeEngine(params, cfg, max_batch=4, max_seq=64, prefill_buckets=(8, 32))
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=5))
+    outs = {f.rid: f.output for f in eng.run_until_done()}
+    assert not ff.fused_forward.launches and not bm.banked_matmul.launches
+    with torch.inference_mode():
+        for rid, p in enumerate(prompts):
+            toks, want = list(p), []
+            for _ in range(5):
+                logits, _ = api.apply(params, {"tokens": torch.tensor([toks], device=dev)}, cfg)
+                want.append(int(torch.argmax(logits[0, -1])))
+                toks.append(want[-1])
+            assert outs[rid] == want, rid

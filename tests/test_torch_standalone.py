@@ -27,6 +27,7 @@ from repro_torch.train import bnn
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 PIPELINE_EXAMPLE = ROOT / "examples" / "packet_pipeline_torch.py"
+SERVE_EXAMPLE = ROOT / "examples" / "serve_bank_torch.py"
 FIG8M = ROOT / "benchmarks_torch" / "fig8m_megastep.py"
 FIG10 = ROOT / "benchmarks_torch" / "fig10_mesh.py"
 FIG12 = ROOT / "benchmarks_torch" / "fig12_faults.py"
@@ -38,7 +39,7 @@ PAPER_FIGURES = [ROOT / "benchmarks_torch" / f"{name}.py" for name in (
 DATAPLANE_FIGURES = [ROOT / "benchmarks_torch" / f"{name}.py" for name in (
     "fig8_dataplane", "fig9_control", "fig11_workloads", "fig15_swap", "run")]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", QUICKSTART, PIPELINE_EXAMPLE] + sorted(
+    ROOT / "chip_smoke.py", QUICKSTART, PIPELINE_EXAMPLE, SERVE_EXAMPLE] + sorted(
     (ROOT / "benchmarks_torch").glob("*.py"))
 
 
@@ -93,7 +94,22 @@ def test_entry_points_raise_without_cuda(no_cuda):
     two_hosts.meta.update(hosts=2, queues_per_host=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         workloads.make_runtime(two_hosts)
-    for path in (QUICKSTART, FIG8M, FIG10, FIG12, *PAPER_FIGURES):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeEngine
+
+    lm_cfg = get_config("smollm-360m").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init(0, lm_cfg)
+    lm_params = api.init(0, lm_cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.from_jax_params(api.to_numpy_params(lm_params), lm_cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(lm_params, lm_cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main([])
+    for path in (QUICKSTART, SERVE_EXAMPLE, FIG8M, FIG10, FIG12, *PAPER_FIGURES):
         spec = importlib.util.spec_from_file_location(path.stem, path)
         script = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(script)
