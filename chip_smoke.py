@@ -218,7 +218,29 @@ Phases, in order; any failure raises and exits non-zero:
    against greedy; (g) ``python -m repro_torch.launch.serve`` in three
    subprocesses at once: its defaults and ``--arch mamba2-130m`` print the
    ``served`` and ``latency`` lines and exit 0, ``--arch
-   seamless-m4t-medium`` exits non-zero, as the reference's does.
+   seamless-m4t-medium`` exits non-zero, as the reference's does;
+10. trains LMs on the card (``run_lm_train_phase``), each part with the
+   launch counts set to 0 around it and failing if any BNN kernel was
+   launched (the training path reaches none): (a) smollm-360m at its
+   published width, depth and dtype (bf16, the f32 master copy, remat
+   "full"; ``init_train_state`` seed 0), ``SyntheticTokens`` (structured,
+   seed 0) at global batch 8 x sequence 512, 3 untimed and 10 timed steps
+   of ``make_train_step``: every loss finite and the last below the first;
+   step ms (median), tokens/s, the share of the bf16 dense peak (6 x
+   ``active_param_count()`` x tokens per step / step s / 989 TFLOP/s),
+   peak device memory, and ``profile_step`` of one step (idle share);
+   (b) one step with remat "full" and one with "none" from (a)'s state on
+   one batch: loss and grad norm within 2**-8 relative, params (master
+   copies) within 2 lr and at most one element in a hundred beyond lr / 10,
+   the peak memory of each; (c) one f32 step of every arch at ``reduced()``
+   from the same weights on the card and on the CPU: loss and grad norm
+   within 1e-5 relative, params as in (b) (the CPU tests' tolerances);
+   (d) mamba2-130m at full width and depth in bf16, 4 steps: finite
+   losses, step ms; (e) smollm-360m reduced (1 layer, f32) through
+   ``Trainer``: 4 steps, preempted by the flag file, restored and run to 8,
+   within 1e-5 of 8 uninterrupted steps; meanwhile ``python -m
+   repro_torch.launch.train`` in two subprocesses, at its defaults and with
+   ``--compress-gradients --microbatches 2``: both exit 0 after 100 steps.
 
 Lines printed before the last: the probe's binary-MMA rates (one JSON
 object, ``binary_mma_rates``), the data plane's kpps per phase, the swap
@@ -234,7 +256,8 @@ lines (a to f), ``mesh_epoch_apply_us``, ``mesh_tick_profile`` and
 ``paper_figures``; phase 7's ``obs_stream``, ``obs_server``, ``deploy``,
 ``checkpoint``, ``megastep_obs_deploy`` and ``obs_deploy_figures``; phase
 8's ``cli``, ``cli_subprocess`` and ``cli_figures``; phase 9's
-``lm_serve ...`` lines and its ``lm_serve`` object.  The last line is
+``lm_serve ...`` lines and its ``lm_serve`` object; phase 10's
+``lm_train ...`` lines and its ``lm_train`` object.  The last line is
 ``{"ok": true, "device": {...}}``.
 A kernel's ``ms`` is its device time, from CUDA events around calls queued
 behind a busy-wait kernel; ``library_ms`` is taken the same way;
@@ -1543,6 +1566,308 @@ def run_lm_serve_phase(*, counted, dev, out) -> None:
     print(json.dumps({"lm_serve": res}), flush=True)
 
 
+TRAIN_BATCH, TRAIN_SEQ = 8, 512    # (a)'s global batch x sequence (SyntheticTokens)
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10  # (a)'s untimed and timed steps
+TRAIN_PROFILED = 3                 # steps of each profile_step round
+TRAIN_LR = 1e-3
+SSM_TRAIN_STEPS = 4                # (d)
+RESUME_STEPS = 4                   # (e): steps before and after the preemption
+RESUME_ATOL = 1e-5                 # (e): the reference's resume tolerance
+STEP_RTOL = 1e-5                   # (b), (c): loss and grad norm
+TRAIN_TIMEOUT_S = 600
+
+
+def run_lm_train_phase(*, counted, dev, out) -> None:
+    """Phase 10 (a to e of the module docstring): LM training on the card,
+    each part with the BNN kernels' launch counts set to 0 around it (the
+    training path launches none of them)."""
+    import copy
+    import dataclasses
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.data.tokens import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.models import api
+    from repro_torch.train import train_step as ts_lib
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_init
+
+    def part(label, fn):
+        result, n = counted(fn)
+        launched = {k: v for k, v in n.items() if v}
+        if launched:
+            fail(f"lm_train {label}: BNN kernels launched on the LM path: {launched}")
+        return result
+
+    def opt_for(cfg, lr=TRAIN_LR, total=100):
+        return OptimizerConfig(learning_rate=lr, warmup_steps=2, total_steps=total,
+                               moments_dtype=cfg.moments_dtype,
+                               master_weights=cfg.master_weights)
+
+    def state_for(model, opt_cfg):
+        return {"params": model, "opt": adamw_init(list(model.parameters()), opt_cfg),
+                "step": torch.zeros((), dtype=torch.int32)}
+
+    def to_dev(batch, device):
+        return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
+
+    def metrics_of(m):
+        return {k: float(v) for k, v in m.items()}
+
+    def params_apart(a, b, lr):
+        """(largest difference, elements beyond lr / 10, elements) of two
+        models' params (f32 master copies where there are)."""
+        la = a["opt"].get("master", list(a["params"].parameters()))
+        lb = b["opt"].get("master", list(b["params"].parameters()))
+        worst, far, total = 0.0, 0, 0
+        for x, y in zip(la, lb):
+            d = (x.detach().float().cpu() - y.detach().float().cpu()).abs()
+            worst = max(worst, float(d.max()))
+            far += int((d > 0.1 * lr).sum())
+            total += d.numel()
+        return worst, far, total
+
+    def check_apart(label, a, b, lr):
+        """Two first steps from one state: every element within 2 lr (a
+        first step's normalised update is at most 1 in size) and at most one
+        in a hundred beyond lr / 10 (an element whose gradient sits within
+        rounding of 0 may move the other way), as the CPU tests hold the
+        port against the reference."""
+        worst, far, total = params_apart(a, b, lr)
+        if worst > 2.01 * lr or far > total / 100:
+            fail(f"lm_train {label}: params {worst:.3g} apart, {far} of {total} "
+                 f"beyond lr/10")
+        return {"max_param_diff": worst, "beyond_lr_over_10": far, "elements": total}
+
+    res = {"card": nvidia_smi("name,power.limit")}
+    published = get_config(LM_ARCH)   # bf16, master weights, remat "full"
+    opt_pub = opt_for(published, total=100)
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    held = {}
+
+    # a. smollm-360m at full width and depth, bf16 + master weights + remat
+    def a():
+        data = SyntheticTokens(TokenPipelineConfig(
+            vocab_size=published.vocab_size, seq_len=TRAIN_SEQ,
+            global_batch=TRAIN_BATCH, seed=0, structured=True))
+        state = held["state"] = ts_lib.init_train_state(0, published, opt_pub, device=dev)
+        step = ts_lib.make_train_step(published, opt_pub)
+        losses, times = [], []
+        torch.cuda.reset_peak_memory_stats(dev)
+        start_bytes = torch.cuda.memory_allocated(dev)
+        for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+            batch = to_dev(next(data), dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            m = metrics_of(m)  # waits for the step
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"])
+        peak = torch.cuda.max_memory_allocated(dev)
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"lm_train a: losses {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"lm_train a: the loss did not fall: {losses}")
+        step_ms = float(np.median(times[TRAIN_WARMUP:]))
+        flops = 6 * published.active_param_count() * tokens_per_step
+        held["batch"] = batch = to_dev(next(data), dev)
+        r = {"params": sum(p.numel() for p in state["params"].parameters()),
+             "active_params": published.active_param_count(),
+             "tokens_per_step": tokens_per_step, "losses": losses,
+             "step_ms": step_ms, "step_ms_all": times,
+             "tokens_per_s": tokens_per_step / (step_ms / 1e3),
+             "model_flops_per_step": flops,
+             "bf16_peak_share": flops / (step_ms / 1e3) / BF16_TENSOR_OPS_PER_S,
+             "peak_memory_gb": peak / 1e9, "start_memory_gb": start_bytes / 1e9}
+        r["step_profile"] = profile_step(lambda: step(state, batch), iters=TRAIN_PROFILED)
+        print(f"lm_train a smollm-360m bf16 remat full, {TRAIN_BATCH}x{TRAIN_SEQ}: "
+              f"{step_ms:.2f} ms/step, {r['tokens_per_s']:.0f} tok/s, "
+              f"{r['bf16_peak_share']:.4f} of the bf16 peak, peak "
+              f"{r['peak_memory_gb']:.3f} GB, idle "
+              f"{r['step_profile']['device_idle_share']:.3f}, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}", flush=True)
+        return r
+    res["a_smollm_bf16"] = part("a", a)
+
+    # b. one step with remat "full" and one with "none" from the same state
+    def b():
+        runs = {}
+        base = held.pop("state")
+        for remat in ("full", "none"):
+            cfg = dataclasses.replace(published, remat=remat)
+            state = copy.deepcopy(base)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            start = torch.cuda.memory_allocated(dev)
+            state, m = ts_lib.make_train_step(cfg, opt_pub)(state, held["batch"])
+            m = metrics_of(m)
+            peak = torch.cuda.max_memory_allocated(dev)
+            runs[remat] = (state, m, {"loss": m["loss"], "grad_norm": m["grad_norm"],
+                                      "peak_memory_gb": peak / 1e9,
+                                      "peak_above_start_gb": (peak - start) / 1e9})
+        del base
+        (sf, mf, rf), (sn, mn, rn) = runs["full"], runs["none"]
+        for k in ("loss", "grad_norm"):
+            # bf16 activations: the two backward passes may round otherwise
+            if abs(mf[k] - mn[k]) > 2.0 ** -8 * abs(mn[k]):
+                fail(f"lm_train b: {k} {mf[k]} with remat, {mn[k]} without")
+        r = {"full": rf, "none": rn,
+             **check_apart("b", sf, sn, float(mf["lr"]))}
+        print(f"lm_train b remat full / none: loss {mf['loss']:.6f} / {mn['loss']:.6f}, "
+              f"peak {rf['peak_memory_gb']:.3f} / {rn['peak_memory_gb']:.3f} GB, "
+              f"params {r['max_param_diff']:.3g} apart", flush=True)
+        return r
+    res["b_remat"] = part("b", b)
+    held.clear()
+    torch.cuda.empty_cache()
+
+    # c. one f32 step of every reduced arch on the card and on the CPU
+    def c():
+        runs = {}
+        cpu = torch.device("cpu")
+        for arch in ARCH_IDS:
+            if arch == "boundswitch-h32":
+                continue
+            cfg = get_config(arch).reduced(remat="none", dtype="float32")
+            oc = opt_for(cfg, lr=3e-4, total=10)
+            host = api.init(0, cfg, device=cpu)
+            card = copy.deepcopy(host).to(dev)
+            rng = np.random.default_rng(0)
+            bnp = {"tokens": rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)}
+            if cfg.frontend == "patch":
+                bnp["patch_embeds"] = rng.normal(
+                    size=(2, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+            if cfg.family == "encdec":
+                bnp["frames"] = rng.normal(size=(2, 32, cfg.d_model)).astype(np.float32)
+            if cfg.bank_mode in ("adapter", "head"):
+                bnp["slot_ids"] = rng.integers(0, cfg.bank_slots, (2,)).astype(np.int32)
+            bnp["labels"] = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+            bnp["loss_mask"] = np.ones((2, 32), np.float32)
+            got = {}
+            for name, model, device in (("cuda", card, dev), ("cpu", host, cpu)):
+                st, m = ts_lib.make_train_step(cfg, oc)(state_for(model, oc),
+                                                        to_dev(bnp, device))
+                got[name] = (st, metrics_of(m))
+            (sc, mc), (sh, mh) = got["cuda"], got["cpu"]
+            for k in ("loss", "grad_norm"):
+                if abs(mc[k] - mh[k]) > STEP_RTOL * abs(mh[k]):
+                    fail(f"lm_train c {arch}: {k} {mc[k]} on the card, {mh[k]} on the CPU")
+            runs[arch] = {"loss": [mc["loss"], mh["loss"]],
+                          "grad_norm": [mc["grad_norm"], mh["grad_norm"]],
+                          **check_apart(f"c {arch}", sc, sh, oc.learning_rate)}
+        worst = max(r["max_param_diff"] for r in runs.values())
+        print(f"lm_train c card against CPU: {len(runs)} archs, loss and grad norm "
+              f"within {STEP_RTOL}, params at most {worst:.3g} apart", flush=True)
+        return runs
+    res["c_card_vs_cpu"] = part("c", c)
+
+    # d. mamba2-130m at full width and depth, bf16
+    def d():
+        cfg = get_config(SSM_ARCH)
+        oc = opt_for(cfg)
+        data = SyntheticTokens(TokenPipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+        state = ts_lib.init_train_state(0, cfg, oc, device=dev)
+        step = ts_lib.make_train_step(cfg, oc)
+        losses, times = [], []
+        for _ in range(SSM_TRAIN_STEPS):
+            batch = to_dev(next(data), dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"lm_train d: losses {losses}")
+        r = {"params": sum(p.numel() for p in state["params"].parameters()),
+             "losses": losses, "step_ms_all": times,
+             "step_ms": float(np.median(times[1:])), "remat": cfg.remat,
+             "dtype": cfg.dtype}
+        print(f"lm_train d mamba2-130m bf16: {r['step_ms']:.2f} ms/step, losses "
+              f"{[round(x, 4) for x in losses]}", flush=True)
+        return r
+    res["d_mamba2_bf16"] = part("d", d)
+    torch.cuda.empty_cache()
+
+    # e. preempt and resume on the card; the launcher in subprocesses
+    work = os.path.join(ROOT, "build", "train")
+    os.makedirs(work, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    extra = [] if dev.type == "cuda" else ["--device", str(dev)]
+    launches = {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv, *extra], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, argv in (
+            ("defaults", []),
+            ("compressed_microbatched", ["--compress-gradients", "--microbatches", "2",
+                                         "--checkpoint-dir",
+                                         os.path.join(work, "launcher_ckpt")]))}
+
+    def e():
+        cfg = get_config(LM_ARCH).reduced(n_layers=1, dtype="float32", remat="none")
+        oc = OptimizerConfig(warmup_steps=0, total_steps=50, learning_rate=1e-3)
+        dcfg = TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4)
+        with tempfile.TemporaryDirectory(dir=work) as d:
+            flag = os.path.join(d, "preempt")
+
+            def trainer(name, **kw):
+                return Trainer(cfg, oc, TrainerConfig(
+                    total_steps=2 * RESUME_STEPS, checkpoint_every=100,
+                    checkpoint_dir=os.path.join(d, name), **kw),
+                    SyntheticTokens(dcfg), device=dev)
+            full = trainer("full")
+            if full.run() != {"status": "done", "steps_run": 2 * RESUME_STEPS}:
+                fail("lm_train e: the uninterrupted run did not finish")
+            cut = trainer("cut", preempt_flag_file=flag)
+            real = cut.step_fn
+
+            def step(state, batch):
+                state, m = real(state, batch)
+                if int(state["step"]) == RESUME_STEPS:
+                    open(flag, "w").close()
+                return state, m
+            cut.step_fn = step
+            first = cut.run()
+            if first != {"status": "preempted", "steps_run": RESUME_STEPS}:
+                fail(f"lm_train e: preemption gave {first}")
+            os.remove(flag)
+            resumed = trainer("cut")
+            if not resumed.try_restore() or int(resumed.state["step"]) != RESUME_STEPS \
+                    or resumed.data.cursor != RESUME_STEPS:
+                fail("lm_train e: the checkpoint did not restore at the preemption")
+            second = resumed.run()
+            worst, _, _ = params_apart(full.state, resumed.state, 0.0)
+            if worst > RESUME_ATOL:
+                fail(f"lm_train e: the resumed run is {worst} from the uninterrupted one")
+        return {"first": first, "second": second, "max_param_diff": worst}
+    try:
+        r = part("e", e)
+        r["launcher"] = {}
+        for name, proc in launches.items():
+            stdout, stderr = proc.communicate(timeout=TRAIN_TIMEOUT_S)
+            lines = stdout.strip().splitlines()
+            r["launcher"][name] = {"exit": proc.returncode, "lines": lines[:1] + lines[-1:],
+                                   "stderr_tail": stderr.strip().splitlines()[-1:]}
+            if proc.returncode or not lines or \
+                    lines[0] != "{'status': 'done', 'steps_run': 100}":
+                fail(f"lm_train e: launcher {name}: {r['launcher'][name]}")
+    finally:
+        for proc in launches.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"lm_train e resume: {r['first']} then {r['second']}, "
+          f"{r['max_param_diff']:.3g} from the uninterrupted run; launcher "
+          f"{ {k: v['lines'] for k, v in r['launcher'].items()} }", flush=True)
+    res["e_resume_launcher"] = r
+    out.update(res)
+    print(json.dumps({"lm_train": res}), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2449,6 +2774,11 @@ def main() -> int:
     run_lm_serve_phase(counted=counted, dev=dev, out=lm_out)
     end_to_end["lm_serve"] = {k: lm_out[k] for k in ("a_smollm_f32", "b_smollm_bf16",
                                                     "d_mamba2_f32")}
+
+    # -- 10. LM training ----------------------------------------------------------
+    train_out = {}
+    run_lm_train_phase(counted=counted, dev=dev, out=train_out)
+    end_to_end["lm_train"] = {k: train_out[k] for k in ("a_smollm_bf16", "d_mamba2_bf16")}
     for e in entries.values():
         if e["launches"] < 1:
             fail(f"{e['name']} was not launched on the main path")

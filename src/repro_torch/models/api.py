@@ -3,7 +3,11 @@
 ``init`` builds the model (an ``nn.Module`` tree named as the reference's
 param pytree) on the card unless the caller asks for another device;
 ``from_jax_params`` carries the reference's params across and
-``to_numpy_params`` gives them back in the reference's layout.
+``to_numpy_params`` gives them back in the reference's layout.  The same
+walk carries any per-parameter state laid out like the params (the
+optimizer's moments and master copy): ``to_numpy_params(model, of=...)``
+and ``load_params(model, tree, into=...)``, with ``of`` / ``into`` mapping
+each parameter to the tensor that stands in its place.
 """
 
 from __future__ import annotations
@@ -66,7 +70,13 @@ def decode_step(params, tokens, cache, cache_len, cfg: ModelConfig, slot_ids=Non
 
 def _leaf_tensor(arr, like: torch.Tensor, path: str) -> torch.Tensor:
     """One reference leaf as a tensor of ``like``'s dtype.  bf16 leaves are
-    taken as ``ml_dtypes.bfloat16`` arrays or as their uint16 bits."""
+    taken as ``ml_dtypes.bfloat16`` arrays or as their uint16 bits; a
+    tensor (a restored checkpoint's leaf) is taken as it is."""
+    if isinstance(arr, torch.Tensor):
+        if tuple(arr.shape) != tuple(like.shape) or arr.dtype != like.dtype:
+            raise ValueError(f"{path}: {arr.dtype} {tuple(arr.shape)}, the model "
+                             f"has {like.dtype} {tuple(like.shape)}")
+        return arr
     arr = np.array(arr)  # a writable contiguous copy
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"{path}: shape {arr.shape}, the model has {tuple(like.shape)}")
@@ -86,10 +96,10 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def _load(obj, tree, path: str) -> None:
+def _load(obj, tree, path: str, into) -> None:
     if isinstance(obj, tnn.ModuleList):
         for i, sub in enumerate(obj):
-            _load(sub, _index(tree, i), f"{path}[{i}]")
+            _load(sub, _index(tree, i), f"{path}[{i}]", into)
         return
     names = set(obj._parameters) | set(obj._modules)
     if set(tree) != names:
@@ -97,17 +107,19 @@ def _load(obj, tree, path: str) -> None:
                          f"has {sorted(names)}")
     for name, value in tree.items():
         if name in obj._parameters:
-            param = obj._parameters[name]
+            dst = into(obj._parameters[name])
             with torch.no_grad():
-                param.copy_(_leaf_tensor(value, param, f"{path}/{name}"))
+                dst.copy_(_leaf_tensor(value, dst, f"{path}/{name}"))
         else:
-            _load(obj._modules[name], value, f"{path}/{name}")
+            _load(obj._modules[name], value, f"{path}/{name}", into)
 
 
-def load_params(module: tnn.Module, params_np: dict) -> tnn.Module:
+def load_params(module: tnn.Module, params_np: dict, into=None) -> tnn.Module:
     """Copy the reference's params of one block (or of the whole model)
-    into ``module``, on its device; the keys must match exactly."""
-    _load(module, params_np, "")
+    into ``module``, on its device; the keys must match exactly.  With
+    ``into`` (parameter -> tensor), each leaf goes into ``into(param)``
+    instead: per-parameter state laid out like the params."""
+    _load(module, params_np, "", into or (lambda p: p))
     return module
 
 
@@ -126,21 +138,23 @@ def _stack(dumps: list):
     return np.stack(dumps)
 
 
-def _dump(obj):
+def _dump(obj, of):
     if isinstance(obj, tnn.ModuleList):
-        return _stack([_dump(sub) for sub in obj])
+        return _stack([_dump(sub, of) for sub in obj])
     out = {}
     for name, param in obj._parameters.items():
-        t = param.detach().cpu()
+        t = of(param).detach().cpu()
         arr = (t.view(torch.int16).numpy().view(np.uint16)
                if t.dtype == torch.bfloat16 else t.numpy())
         out[name] = arr.copy()
     for name, sub in obj._modules.items():
-        out[name] = _dump(sub)
+        out[name] = _dump(sub, of)
     return out
 
 
-def to_numpy_params(model: tnn.Module) -> dict:
+def to_numpy_params(model: tnn.Module, of=None) -> dict:
     """The model's weights in the reference's pytree layout, as NumPy
-    arrays (bf16 as uint16 bits); ``from_jax_params`` takes them back."""
-    return _dump(model)
+    arrays (bf16 as uint16 bits); ``from_jax_params`` takes them back.
+    With ``of`` (parameter -> tensor), each leaf is ``of(param)`` instead:
+    per-parameter state laid out like the params."""
+    return _dump(model, of or (lambda p: p))

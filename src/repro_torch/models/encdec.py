@@ -3,7 +3,9 @@
 The audio frontend is a STUB: the encoder consumes precomputed frame
 embeddings (B, S_enc, d).  Decoder layers carry causal self-attention plus
 cross-attention into the encoder memory; at decode time the per-layer
-cross K/V are computed once (prefill) and read-only.
+cross K/V are computed once (prefill) and read-only.  Under
+``cfg.remat == "full"`` each encoder and decoder layer is recomputed in the
+backward pass (``lm.maybe_remat``), as the reference's ``_maybe_remat`` does.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 from torch import nn as tnn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import banked_logits, stack_caches
+from repro_torch.models.lm import banked_logits, maybe_remat, stack_caches
 from repro_torch.nn import modules as nn
 
 
@@ -87,12 +89,27 @@ def encode(params: EncDec, frames, cfg: ModelConfig):
     bsz, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(bsz, s)
     for lp in params.enc_layers:
-        h, _ = nn.attention_apply(
-            lp.attn, nn.rmsnorm(lp.ln1, x, cfg.norm_eps), cfg,
-            positions=positions, causal=False)
-        x = x + h
-        x = x + nn.mlp_apply(lp.mlp, nn.rmsnorm(lp.ln2, x, cfg.norm_eps))
+        x = maybe_remat(_enc_layer_apply, cfg)(lp, x, cfg, positions)
     return nn.rmsnorm(params.enc_norm, x, cfg.norm_eps)
+
+
+def _enc_layer_apply(lp: EncLayer, x, cfg: ModelConfig, positions):
+    h, _ = nn.attention_apply(
+        lp.attn, nn.rmsnorm(lp.ln1, x, cfg.norm_eps), cfg,
+        positions=positions, causal=False)
+    x = x + h
+    return x + nn.mlp_apply(lp.mlp, nn.rmsnorm(lp.ln2, x, cfg.norm_eps))
+
+
+def _dec_layer_apply(lp: DecLayer, x, memory, cfg: ModelConfig, positions):
+    h, kv = nn.attention_apply(
+        lp.self_attn, nn.rmsnorm(lp.ln1, x, cfg.norm_eps), cfg, positions=positions)
+    x = x + h
+    ckv = cross_kv(lp.cross_attn, memory, cfg)
+    x = x + _cross_attention_apply(
+        lp.cross_attn, nn.rmsnorm(lp.ln2, x, cfg.norm_eps), ckv, cfg)
+    x = x + nn.mlp_apply(lp.mlp, nn.rmsnorm(lp.ln3, x, cfg.norm_eps))
+    return x, kv, ckv
 
 
 def _final_logits(params, x, cfg, slot_ids=None):
@@ -121,13 +138,7 @@ def encdec_apply(params: EncDec, batch, cfg: ModelConfig, *, return_cache=False)
 
     kvs, ckvs = [], []
     for lp in params.dec_layers:
-        h, kv = nn.attention_apply(
-            lp.self_attn, nn.rmsnorm(lp.ln1, x, cfg.norm_eps), cfg, positions=positions)
-        x = x + h
-        ckv = cross_kv(lp.cross_attn, memory, cfg)
-        x = x + _cross_attention_apply(
-            lp.cross_attn, nn.rmsnorm(lp.ln2, x, cfg.norm_eps), ckv, cfg)
-        x = x + nn.mlp_apply(lp.mlp, nn.rmsnorm(lp.ln3, x, cfg.norm_eps))
+        x, kv, ckv = maybe_remat(_dec_layer_apply, cfg)(lp, x, memory, cfg, positions)
         kvs.append(kv)
         ckvs.append(ckv)
     logits = _final_logits(params, x, cfg, slot_ids)

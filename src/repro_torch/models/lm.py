@@ -14,16 +14,25 @@ shared executor in the BoundSwitch sense), plus trailing mamba layers.
 
 Caches keep the reference's leaf names and layouts, stacked over layers:
 KV ``(L, B, G, Lc, hd)``, SSM state ``(..., n, B, H, P, N)``, conv state
-``(..., n, B, W-1, C)``; decode writes them in place.  ``cfg.remat`` is a
-training knob: serving runs under ``torch.inference_mode()`` and ignores it.
+``(..., n, B, W-1, C)``; decode writes them in place.
+
+``cfg.remat == "full"`` recomputes each layer (each hybrid group, and each
+mamba layer inside it) in the backward pass through
+``torch.utils.checkpoint``, as the reference's ``_maybe_remat`` does with
+``jax.checkpoint``; it acts only where autograd records a graph, so serving
+(under ``torch.inference_mode()``) never recomputes.  Training calls
+``lm_apply`` without a cache: no in-place cache write runs in a graph that
+needs gradients.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn as tnn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import modules as nn
@@ -119,6 +128,15 @@ def _ssm_layer_apply(lp: SSMLayer, x, cfg, *, ssm_state=None, conv_state=None,
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
+
+def maybe_remat(fn, cfg: ModelConfig):
+    """``fn``, or under ``cfg.remat == "full"`` with a graph being recorded,
+    ``fn`` whose activations are recomputed in the backward pass instead
+    of kept (the reference's ``_maybe_remat``)."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return fn
+
 
 def _ssm_stack(cfg, n, gen, device) -> tnn.ModuleList:
     return tnn.ModuleList(SSMLayer(cfg, gen, device) for _ in range(n))
@@ -240,8 +258,8 @@ def _final_logits(params, x, cfg, slot_ids=None):
 def _ssm_stack_apply(layers, x, cfg, *, slot_ids, pad_mask, last_valid):
     states = []
     for lp in layers:
-        x, ssm, conv = _ssm_layer_apply(lp, x, cfg, slot_ids=slot_ids,
-                                        pad_mask=pad_mask, last_valid=last_valid)
+        x, ssm, conv = maybe_remat(_ssm_layer_apply, cfg)(
+            lp, x, cfg, slot_ids=slot_ids, pad_mask=pad_mask, last_valid=last_valid)
         states.append({"ssm": ssm, "conv": conv})
     return x, stack_caches(states)
 
@@ -269,7 +287,7 @@ def lm_apply(params: LM, batch, cfg: ModelConfig, *, return_cache: bool = False)
     if cfg.family in ("dense", "moe"):
         kvs = []
         for lp in params.layers:
-            x, kv, aux = _dense_layer_apply(
+            x, kv, aux = maybe_remat(_dense_layer_apply, cfg)(
                 lp, x, cfg, positions=positions, slot_ids=slot_ids,
                 moe_capacity=moe_capacity, pad_mask=pad_mask)
             kvs.append(kv)
@@ -279,12 +297,16 @@ def lm_apply(params: LM, batch, cfg: ModelConfig, *, return_cache: bool = False)
         x, caches = _ssm_stack_apply(params.layers, x, cfg, slot_ids=slot_ids,
                                      pad_mask=pad_mask, last_valid=last_valid)
     elif cfg.family == "hybrid":
-        gstates, kvs = [], []
-        for glp in params.groups:
+        def group(glp, x):
             x, states = _ssm_stack_apply(glp, x, cfg, slot_ids=slot_ids,
                                          pad_mask=pad_mask, last_valid=last_valid)
             x, kv, _ = _dense_layer_apply(params.shared_attn, x, cfg,
                                           positions=positions, slot_ids=slot_ids)
+            return x, states, kv
+
+        gstates, kvs = [], []
+        for glp in params.groups:
+            x, states, kv = maybe_remat(group, cfg)(glp, x)
             gstates.append(states)
             kvs.append(kv)
         caches = {"groups": stack_caches(gstates), "attn": stack_caches(kvs)}

@@ -140,6 +140,13 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
+        """Queue ``req``.  A prompt longer than the largest prefill bucket is
+        refused here, before any device work (the reference truncates it to
+        the bucket and serves zeros)."""
+        if len(req.prompt) > max(self.buckets):
+            raise ValueError(f"request {req.rid}: prompt of {len(req.prompt)} tokens "
+                             f"is longer than the largest prefill bucket "
+                             f"{max(self.buckets)}")
         req.arrival_s = time.monotonic()
         self.waiting.append(req)
 

@@ -15,7 +15,8 @@ kernels ragged blocks, D and H, row tiles that would cross a block, H past
 the wgmma column tile, out-of-range slot ids and both dtypes; each
 banked_matmul case checks the variant that ran (``matmul_variant``).
 Last, one run of the data-plane CLI on the card, its every tick served by
-the fused kernel.
+the fused kernel; the LM serving engine and the LM trainer on the card
+(preempted and resumed), neither launching a kernel of the port.
 """
 
 import numpy as np
@@ -278,3 +279,46 @@ def test_serve_engine_on_the_card(dev):
                 want.append(int(torch.argmax(logits[0, -1])))
                 toks.append(want[-1])
             assert outs[rid] == want, rid
+
+
+def test_trainer_on_the_card(dev, tmp_path):
+    """A reduced smollm-360m (f32) trained on the card by ``Trainer`` built
+    without a device: 4 steps preempted by the flag file and resumed to 8
+    equal 8 uninterrupted steps (within 1e-5), the loss is finite, and no
+    BNN kernel is launched."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    cfg = get_config("smollm-360m").reduced(n_layers=1, remat="full", dtype="float32")
+    flag = tmp_path / "preempt"
+
+    def trainer(name, **kw):
+        return Trainer(cfg, OptimizerConfig(warmup_steps=0, learning_rate=1e-3),
+                       TrainerConfig(total_steps=8, checkpoint_every=100,
+                                     checkpoint_dir=str(tmp_path / name), **kw),
+                       SyntheticTokens(TokenPipelineConfig(
+                           vocab_size=cfg.vocab_size, seq_len=16, global_batch=4)))
+    ff.fused_forward.launches.clear()
+    bm.banked_matmul.launches.clear()
+    full = trainer("full")
+    assert full.state["params"].embed.embedding.device.type == "cuda"
+    full.run()
+    cut = trainer("cut", preempt_flag_file=str(flag))
+    real = cut.step_fn
+
+    def step(state, batch):
+        out = real(state, batch)
+        if int(state["step"]) == 4:
+            flag.write_text("now")
+        return out
+    cut.step_fn = step
+    assert cut.run() == {"status": "preempted", "steps_run": 4}
+    resumed = trainer("cut")
+    assert resumed.try_restore() and int(resumed.state["step"]) == 4
+    resumed.run()
+    assert not ff.fused_forward.launches and not bm.banked_matmul.launches
+    assert all(np.isfinite(m["loss"]) for m in full.metrics_log)
+    for a, b in zip(full.state["params"].parameters(), resumed.state["params"].parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)

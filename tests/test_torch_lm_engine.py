@@ -6,7 +6,9 @@ slot-blind by both; deadline rejection; and h2o-danube-3-4b
 with a prompt longer than its sliding window, where both engines give the
 same tokens and both differ from the greedy decode (the reference's splice
 copies the first window positions of the prefill into the ring, not the
-last ones; ROADMAP Queue 3).  Tokens are compared exactly."""
+last ones; ROADMAP Queue 3); and a prompt longer than the largest prefill
+bucket, which the reference serves as zeros and the port refuses.  Tokens
+are compared exactly."""
 
 import time
 
@@ -174,3 +176,24 @@ def test_full_bank_serves_slot_blind(rng):
     got, _ = _serve(teng, tp, tcfg, reqs, **kw)
     assert got == want and got[0] == got[1]
     assert got[0] == _greedy_port(tp, tcfg, prompt, 4)
+
+
+def test_prompt_past_the_largest_bucket_is_refused(rng, monkeypatch):
+    """A 40-token prompt with buckets ``(32,)``: the reference truncates it
+    to the bucket, reads its next token past the bucket and serves zeros;
+    the port refuses it in ``submit`` with a ``ValueError`` naming the
+    prompt length and the bucket, before any device work (a deviation
+    recorded in ROADMAP Queue 3).  A prompt that fits is still served."""
+    jcfg, tcfg, jp, tp = _models("smollm-360m", bank_mode="none")
+    prompt = rng.integers(0, jcfg.vocab_size, 40)
+    kw = dict(max_batch=2, max_seq=64, prefill_buckets=(32,))
+    want, _ = _serve(jeng, jp, jcfg, [(prompt, 0, 4)], **kw)
+    assert want == {0: [0, 0, 0, 0]}
+    eng = teng.ServeEngine(tp, tcfg, device="cpu", **kw)
+    monkeypatch.setattr(teng.api, "apply", lambda *a, **k: pytest.fail("device work"))
+    with pytest.raises(ValueError, match="prompt of 40 tokens .* prefill bucket 32"):
+        eng.submit(teng.Request(rid=0, prompt=list(prompt), max_new_tokens=4))
+    assert not eng.waiting and not eng.finished
+    monkeypatch.undo()
+    got, _ = _serve(teng, tp, tcfg, [(prompt[:32], 0, 4)], **kw)
+    assert got == _serve(jeng, jp, jcfg, [(prompt[:32], 0, 4)], **kw)[0]

@@ -28,6 +28,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 PIPELINE_EXAMPLE = ROOT / "examples" / "packet_pipeline_torch.py"
 SERVE_EXAMPLE = ROOT / "examples" / "serve_bank_torch.py"
+TRAIN_EXAMPLE = ROOT / "examples" / "train_lm_torch.py"
 FIG8M = ROOT / "benchmarks_torch" / "fig8m_megastep.py"
 FIG10 = ROOT / "benchmarks_torch" / "fig10_mesh.py"
 FIG12 = ROOT / "benchmarks_torch" / "fig12_faults.py"
@@ -39,7 +40,8 @@ PAPER_FIGURES = [ROOT / "benchmarks_torch" / f"{name}.py" for name in (
 DATAPLANE_FIGURES = [ROOT / "benchmarks_torch" / f"{name}.py" for name in (
     "fig8_dataplane", "fig9_control", "fig11_workloads", "fig15_swap", "run")]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", QUICKSTART, PIPELINE_EXAMPLE, SERVE_EXAMPLE] + sorted(
+    ROOT / "chip_smoke.py", QUICKSTART, PIPELINE_EXAMPLE, SERVE_EXAMPLE,
+    TRAIN_EXAMPLE] + sorted(
     (ROOT / "benchmarks_torch").glob("*.py"))
 
 
@@ -109,7 +111,21 @@ def test_entry_points_raise_without_cuda(no_cuda):
         ServeEngine(lm_params, lm_cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main([])
-    for path in (QUICKSTART, SERVE_EXAMPLE, FIG8M, FIG10, FIG12, *PAPER_FIGURES):
+    from repro_torch.data.tokens import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.launch import train
+    from repro_torch.train import train_step
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_step.init_train_state(0, lm_cfg, OptimizerConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(lm_cfg, OptimizerConfig(), TrainerConfig(), SyntheticTokens(
+            TokenPipelineConfig(vocab_size=lm_cfg.vocab_size, seq_len=8, global_batch=2)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main([])
+    for path in (QUICKSTART, SERVE_EXAMPLE, TRAIN_EXAMPLE, FIG8M, FIG10, FIG12,
+                 *PAPER_FIGURES):
         spec = importlib.util.spec_from_file_location(path.stem, path)
         script = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(script)
