@@ -241,6 +241,27 @@ Phases, in order; any failure raises and exits non-zero:
    within 1e-5 of 8 uninterrupted steps; meanwhile ``python -m
    repro_torch.launch.train`` in two subprocesses, at its defaults and with
    ``--compress-gradients --microbatches 2``: both exit 0 after 100 steps.
+11. runs the distribution and tooling layer (``run_lm_dist_phase``), each
+   part with the launch counts set to 0 around it and failing if any BNN
+   kernel was launched: (a) a one-rank NCCL group and ``make_host_mesh()``'s
+   (1, 1) CUDA mesh; smollm-360m as in phase 10 (a) (bf16, master copy,
+   remat "full", seed 0, ``SyntheticTokens`` 8 x 512), its state sharded by
+   ``dryrun.rules_for`` and distributed as DTensors, 3 steps under
+   ``implicit_replication`` beside the same 3 steps unsharded: losses, grad
+   norms, params, master copies and moments bit-equal; both medians of step
+   ms over steps 2 and 3 (the first fills DTensor's caches); (b)
+   ``compressed_psum`` over the group on every gradient leaf of one
+   step, bit-equal to ``quantize_dequantize`` (one rank: the sum is the
+   codes), ms per step; (c) ``roofline.count_step`` on one unsharded step
+   (not a timed one): dot FLOPs, bytes, model FLOPs, the useful ratio, the
+   H100 terms, and (a)'s unsharded step ms over the bound; (d) on the host,
+   ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELLS`` (smollm-360m
+   ``train_4k``, ``prefill_32k``, ``decode_32k`` on both meshes, arctic-480b
+   ``prefill_32k`` and glm4-9b ``decode_32k`` single), one process per cell,
+   into ``build/dryrun_torch``, every cell ``ok``; ``benchmarks_torch/
+   hillclimb.py`` (started once its three baselines are written),
+   ``roofline.py`` and ``report.py`` over them, each exiting 0; (e) ``python
+   -m repro_torch.launch.doclint`` clean.
 
 Lines printed before the last: the probe's binary-MMA rates (one JSON
 object, ``binary_mma_rates``), the data plane's kpps per phase, the swap
@@ -257,7 +278,8 @@ lines (a to f), ``mesh_epoch_apply_us``, ``mesh_tick_profile`` and
 ``checkpoint``, ``megastep_obs_deploy`` and ``obs_deploy_figures``; phase
 8's ``cli``, ``cli_subprocess`` and ``cli_figures``; phase 9's
 ``lm_serve ...`` lines and its ``lm_serve`` object; phase 10's
-``lm_train ...`` lines and its ``lm_train`` object.  The last line is
+``lm_train ...`` lines and its ``lm_train`` object; phase 11's ``lm_dist
+...`` lines and its ``lm_dist`` object.  The last line is
 ``{"ok": true, "device": {...}}``.
 A kernel's ``ms`` is its device time, from CUDA events around calls queued
 behind a busy-wait kernel; ``library_ms`` is taken the same way;
@@ -1868,6 +1890,259 @@ def run_lm_train_phase(*, counted, dev, out) -> None:
     print(json.dumps({"lm_train": res}), flush=True)
 
 
+DIST_STEPS = 3                     # (a)'s steps, sharded and unsharded
+DRYRUN_CELLS = (                   # (d): (arch, shape, mesh)
+    ("smollm-360m", "train_4k", "single"), ("smollm-360m", "train_4k", "multi"),
+    ("smollm-360m", "prefill_32k", "single"), ("smollm-360m", "prefill_32k", "multi"),
+    ("smollm-360m", "decode_32k", "single"), ("smollm-360m", "decode_32k", "multi"),
+    ("arctic-480b", "prefill_32k", "single"), ("glm4-9b", "decode_32k", "single"))
+HILLCLIMB_BASELINES = (("smollm-360m", "train_4k", "single"),
+                       ("arctic-480b", "prefill_32k", "single"),
+                       ("glm4-9b", "decode_32k", "single"))
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun_torch")
+PERF_DIR = os.path.join(ROOT, "build", "perf_torch")
+DRYRUN_TIMEOUT_S = 900
+
+
+def run_lm_dist_phase(*, counted, dev, out) -> None:
+    """Phase 11 (a to e of the module docstring): the distribution and
+    tooling layer on the card, each part with the BNN kernels' launch
+    counts set to 0 around it (the layer launches none of them)."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.distributed import compress, sharding
+    from repro_torch.distributed import roofline as rf
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import train_step as ts_lib
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    def part(label, fn):
+        result, n = counted(fn)
+        launched = {k: v for k, v in n.items() if v}
+        if launched:
+            fail(f"lm_dist {label}: BNN kernels launched on the LM path: {launched}")
+        return result
+
+    res = {"card": nvidia_smi("name,power.limit")}
+    cfg = get_config(LM_ARCH)   # bf16, master weights, remat "full"
+    opt_cfg = OptimizerConfig(learning_rate=TRAIN_LR, warmup_steps=2, total_steps=100,
+                              moments_dtype=cfg.moments_dtype,
+                              master_weights=cfg.master_weights)
+    data = SyntheticTokens(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0, structured=True))
+    batches = [{k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in next(data).items()}
+               for _ in range(DIST_STEPS + 1)]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    held = {}
+    try:
+        # a. the sharded step against the unsharded one, on a (1, 1) mesh
+        def a():
+            mesh = held["mesh"] = make_host_mesh()
+            rules = dryrun.rules_for(cfg, "train", mesh)
+            step = ts_lib.make_train_step(cfg, opt_cfg)
+            plain = ts_lib.init_train_state(0, cfg, opt_cfg, device=dev)
+            shard = ts_lib.init_train_state(0, cfg, opt_cfg, device=dev)
+            pspecs, dropped = sharding.legalize(
+                sharding.param_specs(shard["params"], rules),
+                dict(shard["params"].named_parameters()), mesh)
+            bspecs, _ = sharding.legalize(sharding.batch_specs(batches[0], rules),
+                                          sharding.tree_paths(batches[0]), mesh)
+            specs = {"params": pspecs, "batch": bspecs,
+                     "opt": sharding.opt_state_specs(pspecs, shard["opt"])}
+            shard, _ = sharding.distribute_state(shard, mesh, specs)
+            runs = {"sharded": [], "unsharded": []}
+            times = {"sharded": [], "unsharded": []}
+            for batch in batches[:DIST_STEPS]:
+                for name in ("unsharded", "sharded"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if name == "sharded":
+                        with implicit_replication():
+                            _, m = step(shard, sharding.distribute_tree(batch, mesh, bspecs))
+                        m = {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                             for k, v in m.items()}
+                    else:
+                        _, m = step(plain, batch)
+                    m = {k: float(v) for k, v in m.items()}  # waits for the step
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+                    runs[name].append(m)
+            for i, (mp, ms) in enumerate(zip(runs["unsharded"], runs["sharded"])):
+                for k in ("loss", "grad_norm"):
+                    if mp[k] != ms[k]:
+                        fail(f"lm_dist a: step {i} {k} {ms[k]!r} sharded, {mp[k]!r} not")
+            whole = sharding.gather_state(shard)
+            for key in ("params", "master", "m", "v"):
+                ours = (list(whole["params"].parameters()) if key == "params"
+                        else whole["opt"][key])
+                theirs = (list(plain["params"].parameters()) if key == "params"
+                          else plain["opt"][key])
+                for x, y in zip(ours, theirs):
+                    if not torch.equal(x, y):
+                        fail(f"lm_dist a: {key} differ from the unsharded step's")
+            held["plain"] = plain
+            # steps 2 on: the first fills DTensor's sharding caches
+            r = {"mesh": list(mesh.shape), "dropped_shardings": len(dropped),
+                 "losses": [m["loss"] for m in runs["sharded"]],
+                 "sharded_step_ms": float(np.median(times["sharded"][1:])),
+                 "unsharded_step_ms": float(np.median(times["unsharded"][1:])),
+                 "step_ms_all": times}
+            print(f"lm_dist a smollm-360m bf16 {TRAIN_BATCH}x{TRAIN_SEQ} on a "
+                  f"{tuple(mesh.shape)} NCCL mesh: {DIST_STEPS} steps bit-equal to the "
+                  f"unsharded ones (losses {r['losses']}); median step "
+                  f"{r['sharded_step_ms']:.2f} ms sharded, {r['unsharded_step_ms']:.2f} "
+                  f"ms unsharded (steps 2 on; the first {times['sharded'][0]:.1f} / "
+                  f"{times['unsharded'][0]:.1f} ms)", flush=True)
+            return r
+        res["a_sharded_step"] = part("a", a)
+
+        # b. compressed_psum over the NCCL group on every gradient leaf
+        def b():
+            mesh = held["mesh"]
+            model = held["plain"]["params"]
+            total, _ = ts_lib.make_loss_fn(cfg)(model, batches[DIST_STEPS])
+            total.backward()
+            grads = [p.grad for p in model.parameters()]
+            for p in model.parameters():
+                p.grad = None
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = [compress.compressed_psum(g, mesh, "data") for g in grads]
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            for g, c in zip(grads, got):
+                if not torch.equal(c, compress.quantize_dequantize(g)):
+                    fail("lm_dist b: compressed_psum differs from the codec")
+            r = {"leaves": len(grads), "elements": sum(g.numel() for g in grads),
+                 "ms_per_step": float(np.median(times))}
+            print(f"lm_dist b compressed_psum over the NCCL group: {r['leaves']} "
+                  f"gradient leaves bit-equal to quantize_dequantize, "
+                  f"{r['ms_per_step']:.2f} ms per step", flush=True)
+            return r
+        res["b_compressed_psum"] = part("b", b)
+    finally:
+        dist.destroy_process_group()
+
+    # c. the roofline of phase 10's step (counted apart from the timed steps)
+    def c():
+        state = held.pop("plain")
+        step = ts_lib.make_train_step(cfg, opt_cfg)
+        _, analysis = rf.count_step(step, state, batches[0])
+        torch.cuda.synchronize()
+        terms = rf.roofline_terms(analysis)
+        mf = 6.0 * cfg.active_param_count() * TRAIN_BATCH * TRAIN_SEQ
+        step_ms = res["a_sharded_step"]["unsharded_step_ms"]
+        r = {"analysis": analysis, "roofline": terms, "model_flops": mf,
+             "useful_flops_ratio": mf / analysis["dot_flops"], "step_ms": step_ms,
+             "bound_share": terms["step_s_lower_bound"] / (step_ms / 1e3)}
+        print(f"lm_dist c roofline of one smollm-360m bf16 step: dot_flops "
+              f"{analysis['dot_flops']:.4g}, hbm_bytes {analysis['hbm_bytes']:.4g}, "
+              f"model_flops {mf:.4g}, useful {r['useful_flops_ratio']:.4f}; compute "
+              f"{terms['compute_s'] * 1e3:.3f} ms, memory {terms['memory_s'] * 1e3:.3f} "
+              f"ms, collective {terms['collective_s'] * 1e3:.3f} ms ({terms['dominant']}); "
+              f"step {step_ms:.2f} ms = {r['bound_share']:.4f} of its bound", flush=True)
+        return r
+    res["c_roofline"] = part("c", c)
+
+    # d. the dry-run, the hillclimb and the two reports, on the host: every
+    # cell in a process of its own, all at once; the hillclimb starts once
+    # its three baselines are written, beside the cells still running
+    def d():
+        import shutil
+
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        for path in (DRYRUN_DIR, PERF_DIR):  # no cell of an earlier run
+            shutil.rmtree(path, ignore_errors=True)
+        os.makedirs(DRYRUN_DIR)
+
+        def tool(name, *argv):
+            return subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "benchmarks_torch", f"{name}.py"),
+                 *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+
+        def finish(label, proc):
+            log = proc.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+            if proc.returncode != 0:
+                fail(f"lm_dist d: {label} exit {proc.returncode}: {log[-2000:]}")
+            return log
+
+        t0 = time.perf_counter()
+        procs = {cell: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0],
+             "--shape", cell[1], "--mesh", cell[2], "--out", DRYRUN_DIR], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cell in DRYRUN_CELLS}
+        hill = None
+        try:
+            for arch, shape, mesh in HILLCLIMB_BASELINES:
+                finish(f"{arch} {shape} {mesh}", procs[(arch, shape, mesh)])
+            hill = tool("hillclimb", "--baseline-dir", DRYRUN_DIR, "--out", PERF_DIR)
+            for cell, proc in procs.items():
+                finish(" ".join(cell), proc)
+            baseline_s = time.perf_counter() - t0
+            hill_log = finish("hillclimb", hill)
+        finally:
+            for proc in [*procs.values(), hill]:
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        cells = {}
+        for arch, shape, mesh in DRYRUN_CELLS:
+            with open(os.path.join(DRYRUN_DIR, f"{arch}_{shape}_{mesh}.json")) as f:
+                cell = json.load(f)
+            if cell["status"] != "ok":
+                fail(f"lm_dist d: {cell['cell']} {cell['status']}: {cell.get('error')}")
+            rl = cell["roofline"]
+            cells[cell["cell"]] = {
+                "compute_s": rl["compute_s"], "memory_s": rl["memory_s"],
+                "collective_s": rl["collective_s"], "dominant": rl["dominant"],
+                "gib_per_device": cell["memory"]["per_device_total"] / 2 ** 30,
+                "useful_flops_ratio": cell["useful_flops_ratio"],
+                "seconds": cell["compile_seconds"]}
+            print(f"lm_dist d {cell['cell']}: compute {rl['compute_s']:.4g} s, memory "
+                  f"{rl['memory_s']:.4g} s, collective {rl['collective_s']:.4g} s, "
+                  f"{rl['dominant']}, {cells[cell['cell']]['gib_per_device']:.2f} GiB "
+                  f"per device, {cell['compile_seconds']:.1f} s", flush=True)
+        logs = {"hillclimb": hill_log,
+                "roofline": finish("roofline", tool("roofline", "--dir", DRYRUN_DIR)),
+                "report": finish("report", tool("report", "--dir", DRYRUN_DIR))}
+        for name, log in logs.items():
+            for line in log.strip().splitlines():
+                if line.strip() and not line.startswith("[rank"):
+                    print(f"lm_dist d {name}: {line}", flush=True)
+        return {"cells": cells, "seconds": time.perf_counter() - t0,
+                "baseline_seconds": baseline_s}
+    res["d_dryrun"] = part("d", d)
+
+    # e. the port's docs lint
+    def e():
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.doclint"],
+                              cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f"lm_dist e: doclint: {proc.stdout[-2000:]}")
+        print(f"lm_dist e {proc.stdout.strip()}", flush=True)
+        return {"clean": True}
+    res["e_doclint"] = part("e", e)
+    out.update(res)
+    print(json.dumps({"lm_dist": res}), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2779,6 +3054,16 @@ def main() -> int:
     train_out = {}
     run_lm_train_phase(counted=counted, dev=dev, out=train_out)
     end_to_end["lm_train"] = {k: train_out[k] for k in ("a_smollm_bf16", "d_mamba2_bf16")}
+
+    # -- 11. LM distribution and tooling ------------------------------------------
+    dist_out = {}
+    run_lm_dist_phase(counted=counted, dev=dev, out=dist_out)
+    end_to_end["lm_dist"] = {
+        "a_sharded_step": {k: dist_out["a_sharded_step"][k]
+                           for k in ("sharded_step_ms", "unsharded_step_ms")},
+        "b_compressed_psum_ms": dist_out["b_compressed_psum"]["ms_per_step"],
+        "c_bound_share": dist_out["c_roofline"]["bound_share"],
+        "d_cells": {k: v["dominant"] for k, v in dist_out["d_dryrun"]["cells"].items()}}
     for e in entries.values():
         if e["launches"] < 1:
             fail(f"{e['name']} was not launched on the main path")

@@ -202,6 +202,7 @@ class ControlPlane:
 
     @property
     def has_pending(self) -> bool:
+        """Whether any epoch is queued for the next tick boundary."""
         return bool(self._pending)
 
     # -- application (runtime-side, tick boundary only) ---------------------

@@ -25,19 +25,19 @@ def _cross_attention_apply(p: nn.Attention, x, memory_kv, cfg: ModelConfig):
     bsz, sq, _ = x.shape
     hq, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gq = hq // g
-    q = (x @ p.wq).reshape(bsz, sq, g, gq, hd).permute(0, 2, 3, 1, 4)
+    q = nn.reshape(x @ p.wq, bsz, sq, g, gq, hd).permute(0, 2, 3, 1, 4)
     scores = nn._qk(q, memory_kv["k"]) * (hd ** -0.5)
     out = nn._pv(torch.softmax(scores, dim=-1), memory_kv["v"]).to(x.dtype)
-    out = out.permute(0, 3, 1, 2, 4).reshape(bsz, sq, hq * hd)
-    return out @ p.wo
+    out = nn.reshape(out.permute(0, 3, 1, 2, 4), bsz, sq, hq * hd)
+    return nn.reduce_pending(out @ p.wo)
 
 
 def cross_kv(p: nn.Attention, memory, cfg: ModelConfig) -> dict:
     """Precompute cross-attention K/V from encoder memory: (B, Sm, d)."""
     bsz, sm, _ = memory.shape
     g, hd = cfg.n_kv_heads, cfg.head_dim
-    k = (memory @ p.wk).reshape(bsz, sm, g, hd).transpose(1, 2)
-    v = (memory @ p.wv).reshape(bsz, sm, g, hd).transpose(1, 2)
+    k = nn.reshape(memory @ p.wk, bsz, sm, g, hd).transpose(1, 2)
+    v = nn.reshape(memory @ p.wv, bsz, sm, g, hd).transpose(1, 2)
     return {"k": k, "v": v}
 
 

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 from torch import nn as tnn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -57,7 +58,7 @@ class Adapter(tnn.Module):
 def adapter_apply(p: Adapter, x: torch.Tensor, slot_ids: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d); slot_ids: (B,) -> (B, S, out).  Per-request gather is
     cheap because adapters are low-rank (the 'take' strategy)."""
-    return torch.bmm(torch.bmm(x, p.a[slot_ids]), p.b[slot_ids])
+    return torch.bmm(torch.bmm(x, nn.take_rows(p.a, slot_ids)), nn.take_rows(p.b, slot_ids))
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +111,14 @@ def _dense_layer_apply(lp: DenseLayer, x, cfg, *, positions, kv_cache=None,
         m = nn.mlp_apply(lp.mlp, xn)
     if hasattr(lp, "adapter") and slot_ids is not None:
         m = m + adapter_apply(lp.adapter, xn, slot_ids)
-    return x + m, new_kv, aux
+    out = x + m
+    if (cfg.seq_shard_activations and isinstance(out, DTensor) and out.ndim == 3
+            and out.shape[1] % 16 == 0):
+        # Megatron-SP: pin the residual's token dim to the TP axis
+        mesh = out.device_mesh
+        out = out.redistribute(mesh, [Shard(1) if n == "model" else Replicate()
+                                      for n in mesh.mesh_dim_names])
+    return out, new_kv, aux
 
 
 def _ssm_layer_apply(lp: SSMLayer, x, cfg, *, ssm_state=None, conv_state=None,
@@ -244,7 +252,7 @@ def _embed_inputs(params: LM, batch, cfg: ModelConfig):
 
 def banked_logits(bank_head: nn.Weight, x, cfg: ModelConfig, slot_ids):
     """The banked head: each row's (d, V) slot of the bank, f32 logits."""
-    w = bank_head.w[slot_ids]  # (B, d, V)
+    w = nn.take_rows(bank_head.w, slot_ids)  # (B, d, V)
     return nn.mask_padded_vocab(torch.bmm(x.to(nn.F32), w.to(nn.F32)), cfg)
 
 
@@ -292,7 +300,7 @@ def lm_apply(params: LM, batch, cfg: ModelConfig, *, return_cache: bool = False)
                 moe_capacity=moe_capacity, pad_mask=pad_mask)
             kvs.append(kv)
             aux_total = aux_total + aux
-        caches = stack_caches(kvs)
+        caches = stack_caches(kvs) if return_cache else None
     elif cfg.family == "ssm":
         x, caches = _ssm_stack_apply(params.layers, x, cfg, slot_ids=slot_ids,
                                      pad_mask=pad_mask, last_valid=last_valid)

@@ -20,11 +20,14 @@ Conventions
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -34,6 +37,56 @@ NEG = torch.finfo(torch.float32).min
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _whole_reshape(t, shape):
+    try:
+        return t.reshape(*shape)
+    except RuntimeError:
+        k = 0
+        while k < min(t.ndim, len(shape)) and t.shape[k] == shape[k]:
+            k += 1
+        whole = [Replicate() if p.is_shard() and p.dim >= k else p
+                 for p in t.placements]
+        if whole == list(t.placements):
+            raise
+        return t.redistribute(t.device_mesh, whole).reshape(*shape)
+
+
+class _DTensorReshape(torch.autograd.Function):
+    """``_whole_reshape`` forward, and backward on the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, shape):
+        ctx.in_shape = tuple(t.shape)
+        return _whole_reshape(t, shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _whole_reshape(grad, ctx.in_shape), None
+
+
+def reshape(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``t.reshape(*shape)``.  DTensor refuses to split or merge a sharded
+    dim unevenly (smollm's 15 heads over 16 ranks, 4 SSD chunks over 16),
+    in the forward pass or in the gradient's: such a DTensor is first
+    replicated on the dims after its unchanged leading ones, as GSPMD
+    replicates them."""
+    if not isinstance(t, DTensor):
+        return t.reshape(*shape)
+    return _DTensorReshape.apply(t, shape)
+
+
+def reduce_pending(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's pending sums (``Partial``: a row-parallel product's
+    output) all-reduced, as GSPMD reduces them before the residual add.
+    Left pending, they would reach the next layer's products, where DTensor
+    gathers the weight rather than reduce the activations, and every rank
+    multiplies by the whole weight.  Other tensors as they are."""
+    if not isinstance(t, DTensor) or not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh,
+                          [Replicate() if p.is_partial() else p for p in t.placements])
 
 
 # ---------------------------------------------------------------------------
@@ -105,38 +158,150 @@ class Attention(nn.Module):
                               scale=(cfg.n_heads * hd) ** -0.5)
 
 
+def _group_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, G, gq, M, K) @ (B, G, 1, K, N) -> (B, G, gq, M, N).
+
+    On DTensors it runs on each rank's shards: ``matmul`` flattens (B, G,
+    gq), which DTensor refuses with G sharded (on some PyTorch releases).
+    Per mesh dim: a batch or group shard is shared by both operands and
+    kept; an N shard of ``b`` or an M or gq shard of ``a`` is kept with the
+    other operand whole; a K shard becomes a pending sum where no gradient
+    is needed, and is gathered where one is."""
+    if not isinstance(a, DTensor):
+        return torch.matmul(a, b)
+    mesh = a.device_mesh
+    a = a.redistribute(mesh, [Replicate() if p.is_partial() else p for p in a.placements])
+    b = b.redistribute(mesh, [Replicate() if p.is_partial() else p for p in b.placements])
+    pending = not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad))
+    pa, pb, po = [], [], []
+    for x, y in zip(a.placements, b.placements):
+        if x.is_shard(0) or y.is_shard(0) or x.is_shard(1) or y.is_shard(1):
+            d = 0 if x.is_shard(0) or y.is_shard(0) else 1
+            pa.append(Shard(d)), pb.append(Shard(d)), po.append(Shard(d))
+        elif y.is_shard(4):
+            pa.append(Replicate()), pb.append(y), po.append(Shard(4))
+        elif x.is_shard(3) or x.is_shard(2):
+            pa.append(x), pb.append(Replicate()), po.append(x)
+        elif pending and (x.is_shard(4) or y.is_shard(3)):
+            pa.append(Shard(4)), pb.append(Shard(3)), po.append(Partial())
+        else:
+            pa.append(Replicate()), pb.append(Replicate()), po.append(Replicate())
+    out = torch.matmul(a.redistribute(mesh, pa).to_local(), b.redistribute(mesh, pb).to_local())
+    return DTensor.from_local(out, mesh, po, run_check=False)
+
+
 def _qk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """(B, G, gq, Sq, D) x (B, G, Sk, D) -> (B, G, gq, Sq, Sk) in f32."""
-    return torch.matmul(q.to(F32), k.to(F32).transpose(-1, -2)[:, :, None])
+    return _group_matmul(q.to(F32), k.to(F32).transpose(-1, -2)[:, :, None])
 
 
 def _pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(B, G, gq, Sq, Sk) x (B, G, Sk, D) -> (B, G, gq, Sq, D) in f32, the
     probabilities first cast to the values' dtype as the reference does."""
-    return torch.matmul(p.to(v.dtype).to(F32), v.to(F32)[:, :, None])
+    return _group_matmul(p.to(v.dtype).to(F32), v.to(F32)[:, :, None])
+
+
+def _flash_shards(q, k, v, *, q_offset: int, q_block: int,
+                  seq_shard_axis: Optional[str], **kw):
+    """``_flash_body`` of DTensors, run on each rank's shards with no
+    collective inside the block loops.  Per mesh dim: a dim sharding q's
+    batch keeps it (k and v follow); ``seq_shard_axis`` shards q's tokens
+    (k and v whole) for the attention only, which collapses the q-block
+    loop to one block, and each rank's k and v gradients are its tokens'
+    partial sums; a dim whose size divides the kv-head groups left shards
+    them; a dim that divides the G x gq heads so that each rank's heads lie
+    in one group shards the heads: each rank takes its heads of q and their
+    group of k and v (gradients partial), and the output is (B, ways,
+    G·gq / ways, Sq, D) sharded on dim 1, the heads in their order, as
+    GSPMD shards the q heads; any other dim holds q, k and v whole."""
+    mesh = q.device_mesh
+    bsz, g, gq, sq, _ = q.shape
+    heads = g * gq
+    qp, kvp, head_dims = [], [], []
+    b_ways = g_ways = h_ways = s_ways = 1
+    head_rank = 0
+    offset = q_offset
+    for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, q.placements)):
+        n = mesh.size(i)
+        if p.is_shard(0) and bsz % (b_ways * n) == 0:
+            b_ways *= n
+            qp.append(Shard(0))
+            kvp.append(Shard(0))
+        elif name == seq_shard_axis and sq % (s_ways * n) == 0:
+            s_ways *= n
+            offset += mesh.get_local_rank(i) * (sq // s_ways)
+            qp.append(Shard(3))
+            kvp.append(Replicate())
+        elif h_ways == 1 and g % (g_ways * n) == 0:
+            g_ways *= n
+            qp.append(Shard(1))
+            kvp.append(Shard(1))
+        elif (g_ways == 1 and heads % (h_ways * n) == 0
+              and gq % (heads // (h_ways * n)) == 0):
+            h_ways *= n
+            head_rank = head_rank * n + mesh.get_local_rank(i)
+            head_dims.append(i)
+            qp.append(Shard(1))
+            kvp.append(Replicate())
+        else:
+            qp.append(Replicate())
+            kvp.append(Replicate())
+    if s_ways > 1:
+        q_block = sq // s_ways
+    q_in = [Replicate() if i in head_dims else p for i, p in enumerate(qp)]
+    q_grad = [Partial() if i in head_dims else p for i, p in enumerate(qp)]
+    kv_grad = [Partial() if p.is_shard(3) or i in head_dims else r
+               for i, (p, r) in enumerate(zip(qp, kvp))]
+    ql = q.redistribute(mesh, q_in).to_local(grad_placements=q_grad)
+    kl = k.redistribute(mesh, kvp).to_local(grad_placements=kv_grad)
+    vl = v.redistribute(mesh, kvp).to_local(grad_placements=kv_grad)
+    if h_ways > 1:
+        hp = heads // h_ways
+        grp, j = divmod(head_rank * hp, gq)
+        ql, kl, vl = ql[:, grp:grp + 1, j:j + hp], kl[:, grp:grp + 1], vl[:, grp:grp + 1]
+    out = _flash_body(ql, kl, vl, q_offset=offset, q_block=q_block, **kw)
+    out = DTensor.from_local(out, mesh, qp, run_check=False)
+    if s_ways > 1:
+        # the tokens are sharded for attention only: the projection after
+        # it flattens (B, S), which DTensor refuses with S sharded
+        out = out.redistribute(mesh, [Replicate() if p.is_shard(3) else p for p in qp])
+    return out
 
 
 def _flash_body(q, k, v, *, causal: bool, window: Optional[int],
-                q_offset: int, k_offset: int, q_block: int, k_block: int):
+                q_offset: int, k_offset: int, q_block: int, k_block: int,
+                remat: bool = False, seq_shard_axis: Optional[str] = None):
     """Online-softmax attention.
 
     q: (B, G, gq, Sq, D); k, v: (B, G, Skv, D).  Offsets give absolute
-    positions.  Returns (B, G, gq, Sq, D) in q.dtype.
+    positions.  Returns (B, G, gq, Sq, D) in q.dtype; on DTensors whose
+    heads ``_flash_shards`` shards, the same heads in the same order as
+    (B, ways, G·gq / ways, Sq, D).
+
+    ``remat``: recompute each q block's kv loop in the backward pass instead
+    of saving its per-iteration softmax residuals (flash-style backward).
+    ``seq_shard_axis``: on DTensors, shard q's tokens over this mesh axis
+    (``_flash_shards``) — recovers TP parallelism for archs whose head
+    count does not divide the TP degree.  Plain tensors have no mesh, and
+    it changes nothing.
     """
+    if isinstance(q, DTensor):
+        return _flash_shards(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, k_offset=k_offset, q_block=q_block,
+                             k_block=k_block, remat=remat,
+                             seq_shard_axis=seq_shard_axis)
     bsz, g, gq, sq, d = q.shape
-    skv = k.shape[2]
     scale = d ** -0.5
     dev = q.device
-    blocks = []
-    for iq in range(sq // q_block):
-        qs = q[:, :, :, iq * q_block:(iq + 1) * q_block]
+
+    def q_step(qs, k, v, iq):
         qpos = q_offset + iq * q_block + torch.arange(q_block, device=dev)
         m = torch.full((bsz, g, gq, q_block), NEG, dtype=F32, device=dev)
         l = torch.zeros((bsz, g, gq, q_block), dtype=F32, device=dev)
         acc = torch.zeros((bsz, g, gq, q_block, d), dtype=F32, device=dev)
-        for jk in range(skv // k_block):
-            ks = k[:, :, jk * k_block:(jk + 1) * k_block]
-            vs = v[:, :, jk * k_block:(jk + 1) * k_block]
+        # blocks as views from one split: every block's ops have one shape
+        for jk, (ks, vs) in enumerate(zip(k.split(k_block, dim=2),
+                                          v.split(k_block, dim=2))):
             kpos = k_offset + jk * k_block + torch.arange(k_block, device=dev)
             s = _qk(qs, ks) * scale
             mask = torch.ones((q_block, k_block), dtype=torch.bool, device=dev)
@@ -152,7 +317,13 @@ def _flash_body(q, k, v, *, causal: bool, window: Optional[int],
             acc = acc * corr[..., None] + _pv(p, vs)
             m = m_new
         out = acc / torch.clamp(l, min=1e-37)[..., None]
-        blocks.append(out.to(q.dtype))
+        return out.to(q.dtype)
+
+    if remat and torch.is_grad_enabled():
+        step = functools.partial(checkpoint, q_step, use_reentrant=False)
+    else:
+        step = q_step
+    blocks = [step(qs, k, v, iq) for iq, qs in enumerate(q.split(q_block, dim=3))]
     return torch.cat(blocks, dim=3)
 
 
@@ -173,15 +344,23 @@ def _int_dot(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
     under 2**24 (the QK product over the head dimension, and PV over a
     cache of up to 1040 positions) and exact in f64 beyond it."""
     wide = F32 if n * 127 * 127 < 2 ** 24 else torch.float64
-    return torch.matmul(a.to(wide), b.to(wide)).to(torch.int32)
+    return _group_matmul(a.to(wide), b.to(wide)).to(torch.int32)
 
 
 def _write_rows(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None:
     """cache (B, G, L, ...) [b, :, slot[b]] = new[b, :, 0]: each row's
     write at its own position, in place (the counterpart of the reference's
     vmapped ``dynamic_update_slice``, whose start is clamped into range)."""
+    slot = slot.clamp(0, cache.shape[2] - 1)
+    if isinstance(cache, DTensor):
+        # DTensor has no in-place index_put on a sharded cache: a masked
+        # select keeps every shard local (and rewrites the whole cache)
+        hit = torch.arange(cache.shape[2], device=cache.device)[None, :] == slot[:, None]
+        hit = hit.reshape(cache.shape[0], 1, cache.shape[2], *([1] * (cache.ndim - 3)))
+        cache.copy_(torch.where(hit, new.to(cache.dtype), cache))
+        return
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, :, slot.clamp(0, cache.shape[2] - 1)] = new[:, :, 0].to(cache.dtype)
+    cache[rows, :, slot] = new[:, :, 0].to(cache.dtype)
 
 
 def _decode_attention_int8(q, k, v, kv_cache, slot, valid, hd):
@@ -236,13 +415,13 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     bsz, s, _ = x.shape
     hq, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gq = hq // g
-    q = (x @ p.wq).reshape(bsz, s, hq, hd)
-    k = (x @ p.wk).reshape(bsz, s, g, hd)
-    v = (x @ p.wv).reshape(bsz, s, g, hd)
+    q = reshape(x @ p.wq, bsz, s, hq, hd)
+    k = reshape(x @ p.wk, bsz, s, g, hd)
+    v = reshape(x @ p.wv, bsz, s, g, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     # (B, G, gq, S, D) / (B, G, S, D)
-    q = q.reshape(bsz, s, g, gq, hd).permute(0, 2, 3, 1, 4)
+    q = reshape(q, bsz, s, g, gq, hd).permute(0, 2, 3, 1, 4)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
 
@@ -250,7 +429,8 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         out = _flash_body(
             q, k, v, causal=causal, window=cfg.sliding_window,
             q_offset=0, k_offset=0, q_block=_pick_block(s, q_block),
-            k_block=_pick_block(s, k_block))
+            k_block=_pick_block(s, k_block), remat=cfg.flash_remat,
+            seq_shard_axis="model" if cfg.seq_shard_attention else None)
         new_cache = {"k": k, "v": v}
     else:
         lcache = kv_cache["k"].shape[2]
@@ -274,8 +454,8 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
             new_cache = kv_cache
         out = out.to(x.dtype)
 
-    out = out.permute(0, 3, 1, 2, 4).reshape(bsz, s, hq * hd)
-    return out @ p.wo, new_cache
+    out = reshape(out.permute(0, 3, 1, 2, 4), bsz, s, hq * hd)
+    return reduce_pending(out @ p.wo), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +473,7 @@ class MLP(nn.Module):
 
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     h = F.silu((x @ p.wg).to(F32)).to(x.dtype)
-    return (h * (x @ p.wu)) @ p.wd
+    return reduce_pending((h * (x @ p.wu)) @ p.wd)
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +502,22 @@ class Weight(nn.Module):
 
 
 def embed_apply(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
-    return p.embedding[tokens]
+    return take_rows(p.embedding, tokens)
+
+
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  With DTensor ids it runs on each rank's ids against
+    the whole table (gathered once), out as the ids are placed: DTensor's
+    own rules for the lookup (with ids sharded on two mesh dims) and for
+    its backward (an ``index_put``) fail on some PyTorch releases.  Each
+    rank's table gradient is then its ids' sum, a partial sum over the
+    mesh dims that split the ids, which DTensor reduces."""
+    if not isinstance(ids, DTensor):
+        return table[ids]
+    grad = [Partial() if p.is_shard() else Replicate() for p in ids.placements]
+    whole = table.full_tensor(grad_placements=grad) if isinstance(table, DTensor) else table
+    out = whole[ids.to_local()]
+    return DTensor.from_local(out, ids.device_mesh, list(ids.placements), run_check=False)
 
 
 def mask_padded_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

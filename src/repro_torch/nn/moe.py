@@ -15,9 +15,10 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.nn.modules import F32, _dense_init, cdtype
+from repro_torch.nn.modules import F32, _dense_init, cdtype, reshape
 
 
 class MoE(nn.Module):
@@ -38,6 +39,20 @@ class Dispatch:
     capacity: int
 
 
+def _bincount(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids below ``n``, as a
+    scatter-add (which meta tensors run; bincount has no meta kernel)."""
+    return torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add_(
+        0, ids.long(), torch.ones_like(ids, dtype=torch.long))
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated on every mesh dim; a plain tensor as it is."""
+    if isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+    return t
+
+
 def dispatch_by_expert(expert_ids: torch.Tensor, gate_weights: torch.Tensor,
                        n_experts: int, capacity: int) -> Dispatch:
     """Group (token, expert) assignments into per-expert capacity blocks.
@@ -55,7 +70,7 @@ def dispatch_by_expert(expert_ids: torch.Tensor, gate_weights: torch.Tensor,
     flat_t = torch.arange(t * k, device=dev) // k
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=n_experts + 1)
+    counts = _bincount(flat_e, n_experts + 1)
     seg_start = torch.cumsum(counts, 0) - counts
     rank = torch.arange(t * k, device=dev) - seg_start[sorted_e]
     keep = (rank < capacity) & (sorted_e < n_experts)
@@ -78,7 +93,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, *,
     bsz, s, d = x.shape
     t = bsz * s
     e, k = cfg.n_experts, cfg.experts_per_token
-    xt = x.reshape(t, d)
+    xt = reshape(x, t, d)
 
     logits = xt.to(F32) @ p.router                                # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -89,6 +104,16 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, *,
         expert_ids = torch.where(tm[:, None], expert_ids, e)      # pads -> drop id
         gate_w = torch.where(tm[:, None], gate_w, 0.0)
 
+    mesh = xt.device_mesh if isinstance(xt, DTensor) else None
+    if mesh is not None:
+        # DTensor has no sharding rule for the routing's argsort and
+        # bincount, nor (on some PyTorch releases) for the dispatch's
+        # index_put: route, dispatch and combine on every rank's local copy
+        # of the replicated tokens, ids and weights; only the expert
+        # products run on DTensors (the experts sharded)
+        xt, gate_w = _whole(xt).to_local(), _whole(gate_w).to_local()
+        expert_ids = expert_ids.full_tensor()
+
     if capacity is None:
         capacity = int(cfg.moe_capacity_factor * t * k / e)
         capacity = max(8, -(-capacity // 8) * 8)                  # mult of 8
@@ -96,22 +121,29 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, *,
 
     # scatter tokens into per-expert capacity blocks; the dropped rows land
     # in one extra row past E*C, sliced off (the reference's mode="drop")
-    buf = torch.zeros((e * capacity + 1, d), dtype=x.dtype, device=x.device)
+    buf = xt.new_zeros((e * capacity + 1, d))
     buf[disp.dest] = xt[disp.token]
-    he = buf[:e * capacity].reshape(e, capacity, d).to(F32)
+    he = reshape(buf[:e * capacity], e, capacity, d).to(F32)
+    if mesh is not None:
+        he = DTensor.from_local(he, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
     g = torch.bmm(he, p.wg.to(F32))
     u = torch.bmm(he, p.wu.to(F32))
     hidden = (F.silu(g) * u).to(x.dtype)
     out_e = torch.bmm(hidden.to(F32), p.wd.to(F32)).to(x.dtype)
 
-    gathered = out_e.reshape(e * capacity, d)[torch.clamp(disp.dest, 0, e * capacity - 1)]
+    if mesh is not None:
+        out_e = _whole(out_e).to_local()
+
+    gathered = reshape(out_e, e * capacity, d)[torch.clamp(disp.dest, 0, e * capacity - 1)]
     contrib = gathered * disp.weight[:, None].to(x.dtype)
-    yt = torch.zeros((t, d), dtype=x.dtype, device=x.device).index_add_(
+    yt = xt.new_zeros((t, d)).index_add_(
         0, disp.token, contrib)
+    if mesh is not None:
+        yt = DTensor.from_local(yt, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
     # load-balancing auxiliary loss (Switch-style); pad ids (== E) count nowhere
     me = probs.mean(dim=0)                                        # (E,)
-    ce = torch.bincount(expert_ids.reshape(-1), minlength=e + 1)[:e].to(F32) / (t * k)
+    ce = _bincount(expert_ids.reshape(-1), e + 1)[:e].to(F32) / (t * k)
     aux = e * torch.sum(me * ce)
-    return yt.reshape(bsz, s, d), aux
+    return reshape(yt, bsz, s, d), aux

@@ -16,9 +16,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.nn.modules import F32, RMSNorm, _const, _dense_init, cdtype, rmsnorm
+from repro_torch.nn.modules import F32, RMSNorm, _const, _dense_init, cdtype, reshape, rmsnorm
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -59,6 +60,17 @@ def _segsum(cum: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, diff, -torch.inf)
 
 
+def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum``; a DTensor's on each rank's shard, the summed dim
+    whole (the backward's ``flip`` has no DTensor rule on some releases)."""
+    if not isinstance(x, DTensor):
+        return torch.cumsum(x, dim)
+    mesh = x.device_mesh
+    keep = [Replicate() if p.is_shard(dim) or p.is_partial() else p for p in x.placements]
+    local = torch.cumsum(x.redistribute(mesh, keep).to_local(), dim)
+    return DTensor.from_local(local, mesh, keep, run_check=False)
+
+
 def ssd_chunked(x, dt, a, b, c, chunk: int, init_state=None):
     """SSD over a full sequence.
 
@@ -72,15 +84,15 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, init_state=None):
         raise ValueError(f"seq {s} not divisible by chunk {chunk}")
     nc = s // chunk
 
-    xc = x.reshape(bsz, nc, chunk, h, p).to(F32)
-    dtc = dt.reshape(bsz, nc, chunk, h).to(F32)
-    bc = b.reshape(bsz, nc, chunk, n).to(F32)
-    cc = c.reshape(bsz, nc, chunk, n).to(F32)
+    xc = reshape(x, bsz, nc, chunk, h, p).to(F32)
+    dtc = reshape(dt, bsz, nc, chunk, h).to(F32)
+    bc = reshape(b, bsz, nc, chunk, n).to(F32)
+    cc = reshape(c, bsz, nc, chunk, n).to(F32)
 
     state = (torch.zeros((bsz, h, p, n), dtype=F32, device=x.device)
              if init_state is None else init_state.to(F32))
 
-    cum = torch.cumsum(dtc * a, dim=2)                           # (B, C, L, H) inclusive
+    cum = _cumsum(dtc * a, 2)                                    # (B, C, L, H) inclusive
     # intra-chunk (dual quadratic form)
     lmat = torch.exp(_segsum(cum.transpose(2, 3)))               # (B, C, H, L, L)
     scores = torch.einsum("bcin,bcjn->bcij", cc, bc)             # (B, C, L, L)
@@ -98,7 +110,7 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, init_state=None):
     # inter-chunk (incoming state)
     y_inter = torch.einsum("bcin,bchpn->bcihp", cc, torch.stack(entering, dim=1))
     y_inter = y_inter * torch.exp(cum)[..., None]
-    y = (y_intra + y_inter).to(x.dtype).reshape(bsz, s, h, p)
+    y = reshape((y_intra + y_inter).to(x.dtype), bsz, s, h, p)
     return y, state
 
 
@@ -122,7 +134,12 @@ def ssd_decode_step(state, xt, dtt, a, bt, ct):
     decay = torch.exp(dtf * a)                                   # (B, H)
     upd = dtf[:, :, None, None] * bt.to(F32)[:, None, None, :] * xt.to(F32)[..., None]
     state = decay[..., None, None] * state + upd
-    yt = torch.einsum("bn,bhpn->bhp", ct.to(F32), state)
+    if isinstance(state, DTensor):
+        # einsum flattens (H, P), which DTensor refuses when H is sharded
+        # unevenly (mamba2-130m's 24 heads over 16 ranks)
+        yt = (state * ct.to(F32)[:, None, None, :]).sum(-1)
+    else:
+        yt = torch.einsum("bn,bhpn->bhp", ct.to(F32), state)
     return state, yt.to(xt.dtype)
 
 
@@ -137,7 +154,9 @@ def _split_proj(proj, cfg: ModelConfig):
 
 def _causal_conv(xbc, conv_w, conv_b, width: int):
     """Depthwise causal conv over (B, S, C)."""
-    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    # a cat, not F.pad: DTensor's pad fails on some releases
+    pad = torch.cat([torch.zeros((xbc.shape[0], width - 1, xbc.shape[2]),
+                                 dtype=xbc.dtype, device=xbc.device), xbc], dim=1)
     out = sum(
         pad[:, i: i + xbc.shape[1], :] * conv_w[i][None, None, :]
         for i in range(width)
@@ -186,7 +205,7 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, *, ssm_state=None, conv_state=Non
     if pad_mask is not None and ssm_state is None:
         dt = dt * pad_mask[..., None].to(dt.dtype)  # pads: no state update
     a = -torch.exp(p.A_log)
-    xh = xs.reshape(bsz, s, h, cfg.ssm_head_dim)
+    xh = reshape(xs, bsz, s, h, cfg.ssm_head_dim)
 
     if ssm_state is None:
         chunk = min(cfg.ssm_chunk, s)
@@ -198,7 +217,7 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, *, ssm_state=None, conv_state=Non
             ssm_state, xh[:, 0], dt[:, 0], a, bs[:, 0], cs[:, 0])
         y = yt[:, None]
     y = y + p.D[None, None, :, None].to(y.dtype) * xh
-    y = y.reshape(bsz, s, di)
+    y = reshape(y, bsz, s, di)
     y = rmsnorm(p.norm, y * F.silu(z.to(F32)).to(y.dtype), cfg.norm_eps)
     return y @ p.out_proj, new_state, new_conv_state
 

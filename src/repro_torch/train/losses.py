@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -11,7 +12,13 @@ def cross_entropy(logits, labels, mask=None):
     -inf-masked); labels: (B, S) integer; mask: (B, S) {0,1}."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    if isinstance(logits, DTensor):
+        # DTensor's gather along a sharded vocab dim fails; the masked sum
+        # keeps the vocab dim sharded and is exact (one non-zero term)
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        picked = torch.where(vocab == labels[..., None], logits, 0.0).sum(-1)
+    else:
+        picked = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
     nll = lse - picked
     if mask is None:
         return nll.mean()

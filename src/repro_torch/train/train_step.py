@@ -22,6 +22,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import compress as compress_lib
@@ -59,6 +60,14 @@ def _grads(loss_fn, model, params, batch):
     return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def _placed_like(grads: list, params: list) -> list:
+    """Each DTensor gradient reduced once to its parameter's placements:
+    a pending sum (``Partial``) would otherwise be reduced again by every
+    optimizer op that reads it.  Plain tensors pass as they are."""
+    return [g.redistribute(p.device_mesh, p.placements)
+            if isinstance(g, DTensor) else g for g, p in zip(grads, params)]
+
+
 def make_train_step(
     cfg: ModelConfig,
     opt_cfg: opt_lib.OptimizerConfig,
@@ -89,6 +98,7 @@ def make_train_step(
             metrics = {"loss": torch.stack(losses).mean(),
                        "aux": torch.zeros((), dtype=torch.float32, device=losses[0].device)}
 
+        grads = _placed_like(grads, params)
         if compress_gradients:
             grads = compress_lib.compress_grads(grads)
 
@@ -165,22 +175,35 @@ def load_state(state, tree) -> dict:
 # serving-side steps
 # ---------------------------------------------------------------------------
 
+def _last_logits(logits):
+    """The last position's logits, (B, 1, V); a DTensor's replicated first
+    (DTensor's argmax over a dim sharded on several mesh dims fails on some
+    PyTorch releases)."""
+    last = logits[:, -1:]
+    if isinstance(last, DTensor):
+        last = last.redistribute(last.device_mesh, [Replicate()] * last.device_mesh.ndim)
+    return last
+
+
+# ``no_grad``, not ``inference_mode``: a DTensor view cannot be made in
+# inference mode, and the dry-run runs these steps on DTensors.
+
 def make_prefill_step(cfg: ModelConfig) -> Callable:
-    @torch.inference_mode()
+    @torch.no_grad()
     def prefill_step(params, batch):
         logits, aux, cache = api.apply(params, batch, cfg, return_cache=True)
-        next_token = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        next_token = torch.argmax(_last_logits(logits), dim=-1).to(torch.int32)
         return next_token, cache
 
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
-    @torch.inference_mode()
+    @torch.no_grad()
     def serve_step(params, tokens, cache, cache_len, slot_ids=None):
         logits, new_cache = api.decode_step(params, tokens, cache, cache_len, cfg,
                                             slot_ids)
-        next_token = torch.argmax(logits[:, -1:], dim=-1)[..., 0].to(torch.int32)
+        next_token = torch.argmax(_last_logits(logits), dim=-1)[..., 0].to(torch.int32)
         return next_token, new_cache
 
     return serve_step

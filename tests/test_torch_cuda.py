@@ -16,7 +16,9 @@ the wgmma column tile, out-of-range slot ids and both dtypes; each
 banked_matmul case checks the variant that ran (``matmul_variant``).
 Last, one run of the data-plane CLI on the card, its every tick served by
 the fused kernel; the LM serving engine and the LM trainer on the card
-(preempted and resumed), neither launching a kernel of the port.
+(preempted and resumed), neither launching a kernel of the port; a sharded
+train step and ``compressed_psum`` over a one-rank NCCL mesh, bit-equal to
+the unsharded step and to the codec.
 """
 
 import numpy as np
@@ -322,3 +324,72 @@ def test_trainer_on_the_card(dev, tmp_path):
     assert all(np.isfinite(m["loss"]) for m in full.metrics_log)
     for a, b in zip(full.state["params"].parameters(), resumed.state["params"].parameters()):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.fixture
+def nccl_rank(dev):
+    """A one-rank NCCL group (address and port given here: nothing tells a
+    program of a cluster) and its (1, 1) host mesh; destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    yield make_host_mesh()
+    dist.destroy_process_group()
+
+
+def test_sharded_step_on_the_card(dev, nccl_rank):
+    """A reduced smollm-360m (bf16, master copy) sharded by the dry-run's
+    rules over the one-rank NCCL mesh: 2 steps bit-equal to the same steps
+    unsharded, no BNN kernel launched."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    cfg = get_config("smollm-360m").reduced(remat="full")
+    opt = OptimizerConfig(warmup_steps=0, learning_rate=1e-3)
+    plain = ts.init_train_state(0, cfg, opt, device=dev)
+    shard = ts.init_train_state(0, cfg, opt, device=dev)
+    rules = dryrun.rules_for(cfg, "train", nccl_rank)
+    pspecs, _ = sharding.legalize(sharding.param_specs(shard["params"], rules),
+                                  dict(shard["params"].named_parameters()), nccl_rank)
+    shard, _ = sharding.distribute_state(
+        shard, nccl_rank, {"params": pspecs, "opt": sharding.opt_state_specs(pspecs, shard["opt"])})
+    step = ts.make_train_step(cfg, opt)
+    rng = np.random.default_rng(0)
+    ff.fused_forward.launches.clear()
+    bm.banked_matmul.launches.clear()
+    for _ in range(2):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32))
+        batch = {"tokens": toks.to(dev), "labels": toks.roll(-1, 1).to(dev)}
+        _, mp = step(plain, batch)
+        bspecs = sharding.batch_specs(batch, rules)
+        with implicit_replication():
+            _, ms = step(shard, sharding.distribute_tree(batch, nccl_rank, bspecs))
+        for k in ("loss", "grad_norm"):
+            assert float(ms[k].full_tensor()) == float(mp[k]), k
+    whole = sharding.gather_state(shard)
+    for x, y in zip(whole["params"].parameters(), plain["params"].parameters()):
+        assert torch.equal(x, y)
+    assert not ff.fused_forward.launches and not bm.banked_matmul.launches
+
+
+def test_compressed_psum_on_the_card(dev, nccl_rank):
+    """``compressed_psum`` over the one-rank NCCL group: the codec's bits."""
+    from repro_torch.distributed import compress
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for shape, dtype in (((960, 2560), torch.bfloat16), ((49152,), torch.float32)):
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        assert torch.equal(compress.compressed_psum(x, nccl_rank, "data"),
+                           compress.quantize_dequantize(x))

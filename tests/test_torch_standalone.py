@@ -198,3 +198,59 @@ def test_every_kernel_source_has_a_signature():
         assert path == _build.library_path(name)  # stable across calls
         symbol, _ = _build.SIGNATURES[name]
         assert f'extern "C" int {symbol}(' in (_build.CSRC / f"{name}.cu").read_text()
+
+
+def test_host_mesh_refuses_without_cuda(no_cuda):
+    """``make_host_mesh`` lays out the cards; the CPU only when asked."""
+    from repro_torch.launch import mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_host_mesh()
+    with pytest.raises(RuntimeError, match="process group"):
+        mesh.make_host_mesh(device_type="cpu")  # nothing initialised one
+
+
+def _cell(arch, shape, mesh, dominant, variant="baseline"):
+    terms = {"compute_s": 1.0, "memory_s": 2.0, "collective_s": 3.0}
+    terms[f"{dominant}_s"] = 9.0
+    return {"cell": f"{arch}|{shape}|{mesh}", "arch": arch, "shape": shape,
+            "mesh": mesh, "kind": "train", "variant": variant, "status": "ok",
+            "roofline": dict(terms, dominant=dominant, step_s_lower_bound=9.0),
+            "analysis": {"collective_bytes": {"all-reduce": 2.0, "all-gather": 1.0}},
+            "memory": {"per_device_total": 2 ** 30}, "useful_flops_ratio": 0.5}
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "benchmarks_torch" / f"{name}.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    return script
+
+
+def test_lm_tools_read_dry_run_cells(tmp_path, capsys, monkeypatch):
+    """``roofline.py``, ``report.py`` and ``hillclimb.py`` over the
+    dry-run's JSONs, on the host (no card, no JAX)."""
+    import json
+
+    cells = [_cell("smollm-360m", "train_4k", "single", "collective"),
+             _cell("smollm-360m", "train_4k", "multi", "memory")]
+    for c in cells:
+        (tmp_path / (c["cell"].replace("|", "_") + ".json")).write_text(json.dumps(c))
+    _load("roofline").main(["--dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "roofline.cells,2" in out and "roofline.dominant.collective,1" in out
+    _load("report").main(["--dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "| smollm-360m | train_4k |" in out and "cut all-reduce traffic" in out
+
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(dryrun, "run_cell", lambda arch, shape, multi_pod, variant:
+                        dict(_cell(arch, shape, "single", "compute", variant),
+                             compile_seconds=0.1))
+    hill = _load("hillclimb")
+    assert hill.main(["--cells", "A", "--baseline-dir", str(tmp_path),
+                      "--out", str(tmp_path / "perf")]) == 0
+    out = capsys.readouterr().out
+    assert out.count("speedup=1.00x") == 3
+    assert len(list((tmp_path / "perf").glob("*.json"))) == 3
