@@ -257,8 +257,13 @@ Phases, in order; any failure raises and exits non-zero:
    H100 terms, and (a)'s unsharded step ms over the bound; (d) on the host,
    ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELLS`` (smollm-360m
    ``train_4k``, ``prefill_32k``, ``decode_32k`` on both meshes, arctic-480b
-   ``prefill_32k`` and glm4-9b ``decode_32k`` single), one process per cell,
-   into ``build/dryrun_torch``, every cell ``ok``; ``benchmarks_torch/
+   ``prefill_32k`` and glm4-9b ``decode_32k`` single, and the repaired
+   layouts' single-mesh cells: mamba2-130m, zamba2-7b and llava-next-34b
+   ``prefill_32k``, seamless-m4t-medium ``decode_32k``, h2o-danube-3-4b
+   ``long_500k``, olmoe-1b-7b and arctic-480b ``train_4k``), one process per
+   cell, into ``build/dryrun_torch``, every cell ``ok`` and in the aim
+   against the reference's table (``dryrun.AIM``; one ``lm_dist d ...
+   against the reference`` line each); ``benchmarks_torch/
    hillclimb.py`` (started once its three baselines are written),
    ``roofline.py`` and ``report.py`` over them, each exiting 0; (e) ``python
    -m repro_torch.launch.doclint`` clean.
@@ -1895,7 +1900,13 @@ DRYRUN_CELLS = (                   # (d): (arch, shape, mesh)
     ("smollm-360m", "train_4k", "single"), ("smollm-360m", "train_4k", "multi"),
     ("smollm-360m", "prefill_32k", "single"), ("smollm-360m", "prefill_32k", "multi"),
     ("smollm-360m", "decode_32k", "single"), ("smollm-360m", "decode_32k", "multi"),
-    ("arctic-480b", "prefill_32k", "single"), ("glm4-9b", "decode_32k", "single"))
+    ("arctic-480b", "prefill_32k", "single"), ("glm4-9b", "decode_32k", "single"),
+    # the layouts repaired against the reference's per-rank work
+    ("mamba2-130m", "prefill_32k", "single"), ("zamba2-7b", "prefill_32k", "single"),
+    ("llava-next-34b", "prefill_32k", "single"),
+    ("seamless-m4t-medium", "decode_32k", "single"),
+    ("h2o-danube-3-4b", "long_500k", "single"), ("olmoe-1b-7b", "train_4k", "single"),
+    ("arctic-480b", "train_4k", "single"))
 HILLCLIMB_BASELINES = (("smollm-360m", "train_4k", "single"),
                        ("arctic-480b", "prefill_32k", "single"),
                        ("glm4-9b", "decode_32k", "single"))
@@ -2118,6 +2129,18 @@ def run_lm_dist_phase(*, counted, dev, out) -> None:
                   f"{rl['memory_s']:.4g} s, collective {rl['collective_s']:.4g} s, "
                   f"{rl['dominant']}, {cells[cell['cell']]['gib_per_device']:.2f} GiB "
                   f"per device, {cell['compile_seconds']:.1f} s", flush=True)
+            # the per-rank work against the reference's table (dryrun.AIM)
+            fid = cell["fidelity"]
+            if fid is None:
+                fail(f"lm_dist d: {cell['cell']} has no entry in the reference's table")
+            cells[cell["cell"]]["fidelity"] = fid
+            rest = (f", without attention x{fid['rest_ratio']:.4f} (attention "
+                    f"x{fid['attention_ratio']:.4f})" if "rest_ratio" in fid else "")
+            print(f"lm_dist d {cell['cell']} against the reference: dot_flops "
+                  f"x{fid['dot_flops_ratio']:.4f}{rest}, argument_bytes "
+                  f"{fid['argument_bytes_extra']:+d}", flush=True)
+            if not fid["in_aim"]:
+                fail(f"lm_dist d: {cell['cell']} misses the aim against the reference: {fid}")
         logs = {"hillclimb": hill_log,
                 "roofline": finish("roofline", tool("roofline", "--dir", DRYRUN_DIR)),
                 "report": finish("report", tool("report", "--dir", DRYRUN_DIR))}

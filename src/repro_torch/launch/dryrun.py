@@ -17,26 +17,51 @@ collective bytes.  Python unrolls the layer loop (the reference compiles
 one scan body), so each cell counts the step at a depth of two layers of
 each kind and at one more, and scales the difference to the full depth;
 ``tests/test_torch_roofline.py`` holds that product equal to the whole
-count.
+count.  ``memory.argument_bytes`` counts only the arguments the step reads
+(``_ReadTracker``: a parameter the step never reads, as the banked head's
+unused ``head`` or, with master weights, an adapter's bf16 copy that no
+batch routes through, is no argument), as the reference's ``jit`` drops
+unread arguments.
+
+Each cell's per-rank ``dot_flops`` and ``argument_bytes`` are held against
+the reference's, read from ``dryrun_reference.json`` beside this module
+(written from the JAX package by ``tests/dryrun_reference.py``; this
+package never imports it): ``fidelity`` in the cell's result, and a cell
+that misses the aim fails the run as an error does.  The aim: equal
+argument bytes, at most ``AIM[1]`` times the reference's dot FLOPs, and at
+least ``AIM[0]`` times them.  Only a training step under FSDP may fall
+below: the reference runs its attention on the whole batch on every rank
+of the FSDP axis, where the port splits the batch there.  Such a cell
+meets the aim when its products other than attention's two and the SSD's
+(``no_attention``: the count again with them dot-free, the table's
+``rest_dot_flops`` the reference's) are within ``AIM``, and its attention
+is at least ``AIM[0]`` of the reference's over the FSDP axis's size (each
+rank does its share of what the reference repeats; ``PERF.md`` lists each
+such cell).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch smollm-360m --shape train_4k --mesh single
-    python -m repro_torch.launch.dryrun --all --out build/dryrun_torch
+    python -m repro_torch.launch.dryrun --all --jobs 8 --out build/dryrun_torch
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import multiprocessing
 import os
 import re
 import time
 import traceback
+from concurrent.futures import ProcessPoolExecutor
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
+from torch.overrides import TorchFunctionMode
 
 from repro_torch.configs.base import SHAPES, shape_applicable
 from repro_torch.configs.registry import ARCH_IDS, get_config
@@ -44,7 +69,14 @@ from repro_torch.distributed import roofline as rf
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch import specs as specs_lib
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.nn import modules as nn_modules
+from repro_torch.nn import ssd as ssd_lib
 from repro_torch.train import train_step as ts_lib
+
+REFERENCE_TABLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "dryrun_reference.json")
+# the band of the port's per-rank dot FLOPs over the reference's
+AIM = (0.8, 1.25)
 
 # FSDP thresholds (param count): above these, weights/opt-state shard over
 # the data axis too (ZeRO-3 semantics).
@@ -122,6 +154,87 @@ def _decode_cache_specs(cache, rules, mesh):
     return out
 
 
+class _ReadTracker(TorchFunctionMode):
+    """Records every tensor the step passes to a torch function, or whose
+    DTensor methods ``redistribute``, ``to_local`` or ``full_tensor`` it
+    calls (Python methods, which no mode sees: wrapped while the tracker
+    is entered), as one that it reads: not the metadata calls (shape,
+    ``zeros_like``) nor the destination of a write that reads nothing
+    (``copy_``, ``zero_``, ``fill_``, setting ``.grad``)."""
+
+    _METHODS = ("redistribute", "to_local", "full_tensor")
+
+    _METADATA = {"__get__", "__set__", "size", "dim", "numel", "element_size",
+                 "zeros_like", "ones_like", "empty_like", "full_like",
+                 "new_zeros", "new_ones", "new_empty", "new_full"}
+    _WRITE_ONLY = {"copy_", "zero_", "fill_"}
+
+    def __init__(self):
+        super().__init__()
+        self.read: set[int] = set()
+        self._saved: dict = {}
+
+    def __enter__(self):
+        for name in self._METHODS:
+            method = self._saved[name] = getattr(DTensor, name)
+
+            def wrapped(t, *args, _method=method, **kwargs):
+                self.read.add(id(t))
+                return _method(t, *args, **kwargs)
+            setattr(DTensor, name, wrapped)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        for name, method in self._saved.items():
+            setattr(DTensor, name, method)
+        return super().__exit__(*exc)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", "")
+        if name not in self._METADATA:
+            tensors = rf._tensors((args, kwargs))
+            if name in self._WRITE_ONLY:
+                tensors = tensors[1:]
+            self.read.update(id(t) for t in tensors)
+        return func(*args, **kwargs)
+
+
+def _named_leaves(tree, prefix: str = "", names: tuple = ()) -> list:
+    """(path, tensor) of every tensor in ``tree`` (dicts, lists, tuples,
+    modules' parameters); a list as long as the model's parameters (the
+    optimizer's ``m``, ``v``, ``master``) named by them."""
+    if isinstance(tree, torch.nn.Module):
+        return [(f"{prefix}/{n}", p) for n, p in tree.named_parameters()]
+    if isinstance(tree, dict):
+        if not names and isinstance(tree.get("params"), torch.nn.Module):
+            names = tuple(n for n, _ in tree["params"].named_parameters())
+        return [leaf for k, v in tree.items()
+                for leaf in _named_leaves(v, f"{prefix}/{k}", names)]
+    if isinstance(tree, (list, tuple)):
+        labels = names if names and len(tree) == len(names) else range(len(tree))
+        return [leaf for k, v in zip(labels, tree)
+                for leaf in _named_leaves(v, f"{prefix}/{k}", names)]
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    return []
+
+
+def _layerless(path: str) -> str:
+    """A leaf's path with its layer (and group) indices dropped: every
+    layer of a kind reads the same leaves."""
+    return re.sub(r"\.\d+(?=\.|$)", "", path)
+
+
+def _read_bytes(args, read: set, within=None) -> int:
+    """Bytes one rank holds of the leaves of ``args`` whose layerless path
+    the step read (``read``: ``_count``'s); with ``within``, of those
+    leaves that are also in that tree."""
+    ids = None if within is None else {id(t) for _, t in _named_leaves(within)}
+    return sum(_local_bytes(t) for path, t in _named_leaves(args)
+               if _layerless(path) in read and (ids is None or id(t) in ids))
+
+
 def _local_bytes(tree) -> int:
     """Bytes one rank holds of every tensor in ``tree`` (dicts, lists,
     tuples, modules' parameters; DTensors by their local shard)."""
@@ -135,6 +248,59 @@ def _local_bytes(tree) -> int:
         local = tree.to_local() if hasattr(tree, "to_local") else tree
         return local.numel() * local.element_size()
     return 0
+
+
+def _scores_free(q, k):
+    """``modules._qk``'s shape, (B, G, gq, Sq, Sk), without a product."""
+    return q.float().sum(-1, keepdim=True) + k.float().sum(-1)[:, :, None, None, :]
+
+
+def _mix_free(p, v):
+    """``modules._pv``'s shape, (B, G, gq, Sq, D), without a product."""
+    return p.float().sum(-1, keepdim=True) * v.float().sum(2)[:, :, None, None, :]
+
+
+def _einsum_free(spec: str, *operands):
+    """``torch.einsum(spec, *operands)``'s shape without a product: each
+    operand summed over the labels the output lacks, broadcast, added."""
+    ins, out = spec.replace(" ", "").split("->")
+    total = None
+    for labels, t in zip(ins.split(","), operands):
+        drop = [i for i, c in enumerate(labels) if c not in out]
+        t = t.float().sum(dim=drop) if drop else t.float()
+        kept = [c for c in labels if c in out]
+        order = sorted(range(len(kept)), key=lambda i: out.index(kept[i]))
+        t = t.permute(*order)
+        kept = [kept[i] for i in order]
+        t = t.reshape([t.shape[kept.index(c)] if c in kept else 1 for c in out])
+        total = t if total is None else total + t
+    return total
+
+
+@contextlib.contextmanager
+def no_attention():
+    """Attention's two products (``modules._qk``, ``_pv``: the flash loop,
+    decode, cross-attention) and the SSD's (every ``einsum`` of
+    ``nn.ssd``: its chunked dual form, attention's counterpart, and its
+    decode recurrence) replaced by dot-free stand-ins of their shapes while
+    it is entered; gradients still reach their operands, so every other
+    product and its backward pass is unchanged."""
+    saved = nn_modules._qk, nn_modules._pv, ssd_lib.torch
+    nn_modules._qk, nn_modules._pv = _scores_free, _mix_free
+    ssd_lib.torch = _NoEinsum()
+    try:
+        yield
+    finally:
+        nn_modules._qk, nn_modules._pv, ssd_lib.torch = saved
+
+
+class _NoEinsum:
+    """``torch`` for ``nn.ssd`` with a dot-free ``einsum``."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    einsum = staticmethod(_einsum_free)
 
 
 def _depth_fields(cfg) -> list[tuple[str, int]]:
@@ -204,10 +370,20 @@ def _build_cell(cfg, shape, rules, mesh, batch_seq_shard: bool):
 
 
 def _count(cfg, shape, rules, mesh, batch_seq_shard) -> dict:
+    """The step's counts (``roofline.count_step``), the local bytes of its
+    outputs, and the layerless paths of the arguments it read (``read``)."""
     step, args, _, _ = _build_cell(cfg, shape, rules, mesh, batch_seq_shard)
+    leaves = _named_leaves(args)  # before the step replaces its counters
+    tracker = _ReadTracker()
+
+    def tracked(*a):
+        with tracker:
+            return step(*a)
+
     with implicit_replication():
-        out, analysis = rf.count_step(step, *args)
+        out, analysis = rf.count_step(tracked, *args)
     analysis["output_bytes"] = _local_bytes(out)
+    analysis["read"] = {_layerless(path) for path, t in leaves if id(t) in tracker.read}
     return analysis
 
 
@@ -223,6 +399,7 @@ def _scaled(base: dict, steps: list[tuple[dict, int]]) -> dict:
            for k in ("dot_flops", "hbm_bytes", "peak_live_bytes", "output_bytes")}
     out["collective_bytes"] = coll
     out["collective_bytes_total"] = sum(coll.values())
+    out["read"] = base["read"]
     return out
 
 
@@ -272,27 +449,33 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                             store=FakeStore())
     try:
         return _run_cell(cfg, shape, multi_pod, vspec, cell_id, t0, arch,
-                         shape_name, mesh_name, variant)
+                         shape_name, mesh_name, variant, held=not overrides)
     finally:
         dist.destroy_process_group()
 
 
 def _run_cell(cfg, shape, multi_pod, vspec, cell_id, t0, arch, shape_name,
-              mesh_name, variant) -> dict:
+              mesh_name, variant, held: bool) -> dict:
+    """``run_cell``'s body; ``held``: the cell is the table's (no overrides)
+    and its result gets a ``fidelity``."""
     mesh = make_production_mesh(multi_pod=multi_pod)
     kind = shape.kind
     rules = rules_for(cfg, kind, mesh, style=vspec.get("style", "1d"))
     seq = bool(vspec.get("batch_seq_shard"))
     result = {"cell": cell_id, "arch": arch, "shape": shape_name,
               "mesh": mesh_name, "kind": kind, "variant": variant,
-              "fsdp": rules.fsdp_axis is not None}
+              "fsdp": rules.fsdp_axis is not None,
+              "fsdp_ways": mesh.size(mesh.mesh_dim_names.index(rules.fsdp_axis))
+              if rules.fsdp_axis is not None else 1}
 
-    # full depth on meta: the arguments, the dropped shardings, the outputs
-    _, args, dropped, aliased = _build_cell(cfg, shape, rules, mesh, seq)
-    arg_bytes = _local_bytes(args)
-    alias_bytes = _local_bytes(aliased)
-    del args, aliased
     analysis = count_cell(cfg, shape, rules, mesh, seq)
+    read = analysis.pop("read")
+    # full depth on meta: the arguments the step reads, the dropped
+    # shardings, the outputs
+    _, args, dropped, aliased = _build_cell(cfg, shape, rules, mesh, seq)
+    arg_bytes = _read_bytes(args, read)
+    alias_bytes = _read_bytes(args, read, within=aliased) if aliased is not None else 0
+    del args, aliased
     out_bytes = analysis.pop("output_bytes")
     temp = analysis.pop("peak_live_bytes")
 
@@ -314,9 +497,78 @@ def _run_cell(cfg, shape, multi_pod, vspec, cell_id, t0, arch, shape_name,
     result["useful_flops_ratio"] = mf / global_dot if global_dot else None
     result["params"] = cfg.param_count()
     result["active_params"] = cfg.active_param_count()
-    result["compile_seconds"] = time.time() - t0
     result["status"] = "ok"
+    fid = result["fidelity"] = fidelity(result) if held else None
+    if fid is not None and fid["dot_flops_ratio"] < AIM[0]:
+        with no_attention():
+            rest = count_cell(cfg, shape, rules, mesh, seq)["dot_flops"]
+        result["fidelity"] = fidelity(result, rest)
+    result["compile_seconds"] = time.time() - t0
     return result
+
+
+def reference_entry(cell: str) -> dict | None:
+    """The reference's entry for ``arch|shape|mesh`` in the table, or None
+    where the table has none."""
+    if not os.path.exists(REFERENCE_TABLE):
+        return None
+    with open(REFERENCE_TABLE) as f:
+        return json.load(f).get("|".join(cell.split("|")[:3]))
+
+
+def fidelity(result: dict, rest: float | None = None, ref: dict | None = None) -> dict | None:
+    """A baseline cell's per-rank dot FLOPs over the reference's, its
+    argument bytes less the reference's, and whether it meets the aim (the
+    module docstring); with ``rest`` (the port's dot FLOPs under
+    ``no_attention``), also the products other than attention's over the
+    reference's, and attention's (the SSD's with it).  Against ``ref`` (an
+    entry of the table's form) where given, else the table's; None for a
+    variant or a cell the table lacks."""
+    if ref is None and result.get("variant", "baseline") == "baseline":
+        ref = reference_entry(result["cell"])
+    if ref is None or ref.get("status") != "ok":
+        return None
+    ratio = result["analysis"]["dot_flops"] / ref["dot_flops"]
+    extra = result["memory"]["argument_bytes"] - ref["argument_bytes"]
+    out = {"dot_flops_ratio": ratio, "argument_bytes_extra": extra}
+    floor = AIM[0] <= ratio
+    if rest is not None:
+        out["rest_ratio"] = rest / ref["rest_dot_flops"]
+        attention = ref["dot_flops"] - ref["rest_dot_flops"]
+        out["attention_ratio"] = ((result["analysis"]["dot_flops"] - rest) / attention
+                                  if attention else None)
+        ways = result.get("fsdp_ways", 1)
+        if result["kind"] == "train" and ways > 1 and attention:
+            floor = floor or (AIM[0] <= out["rest_ratio"] <= AIM[1]
+                              and out["attention_ratio"] * ways >= AIM[0])
+    out["in_aim"] = floor and ratio <= AIM[1] and extra == 0
+    return out
+
+
+def compare(directory: str) -> int:
+    """One line per baseline cell in ``directory`` (``--out``'s JSON): its
+    status and, against the reference's table, the dot-FLOP ratio and the
+    extra argument bytes.  1 if a cell is not ``ok`` or misses the aim."""
+    bad = 0
+    for name in sorted(os.listdir(directory)):
+        with open(os.path.join(directory, name)) as f:
+            res = json.load(f)
+        if res.get("variant", "baseline") != "baseline" or res["status"] == "skipped":
+            continue
+        fid = (res.get("fidelity") or fidelity(res)) if res["status"] == "ok" else None
+        bad += fid is None or not fid["in_aim"]
+        print(json.dumps({"cell": res["cell"], "status": res["status"], **(fid or {})}))
+    return 1 if bad else 0
+
+
+def _run_guarded(arch: str, shape: str, mesh: str, variant: str) -> dict:
+    """``run_cell``, a cell that raises recorded as ``status: error``."""
+    try:
+        return run_cell(arch, shape, multi_pod=(mesh == "multi"), variant=variant)
+    except Exception as e:  # recorded, never skipped: the cell is an error
+        return {"cell": f"{arch}|{shape}|{mesh}|{variant}", "status": "error",
+                "error": f"{type(e).__name__}: {e}",
+                "traceback": traceback.format_exc()[-2000:]}
 
 
 def main(argv=None):
@@ -327,7 +579,14 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None, help="directory for per-cell JSON")
     ap.add_argument("--variant", default="baseline", choices=list(VARIANTS))
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells run at once, each in a process of its own")
+    ap.add_argument("--compare", metavar="DIR",
+                    help="run nothing: hold the cells an earlier --out wrote to DIR "
+                         "against the reference's table")
     args = ap.parse_args(argv)
+    if args.compare:
+        return compare(args.compare)
 
     cells = []
     archs = [a for a in ARCH_IDS if a != "boundswitch-h32"] if args.all else [args.arch]
@@ -336,31 +595,42 @@ def main(argv=None):
     for a in archs:
         for s in shapes:
             for m in meshes:
-                cells.append((a, s, m))
+                cells.append((a, s, m, args.variant))
 
-    failed = 0
-    for a, s, m in cells:
-        try:
-            res = run_cell(a, s, multi_pod=(m == "multi"), variant=args.variant)
-        except Exception as e:  # recorded, never skipped: the cell is an error
-            res = {"cell": f"{a}|{s}|{m}|{args.variant}", "status": "error",
-                   "error": f"{type(e).__name__}: {e}",
-                   "traceback": traceback.format_exc()[-2000:]}
-        failed += res.get("status") == "error"
-        line = {k: res.get(k) for k in ("cell", "status", "reason", "error")}
-        print(json.dumps(line), flush=True)
-        if res.get("status") == "ok":
-            r = res["roofline"]
-            print(f"  compute={r['compute_s']*1e3:.3f}ms memory={r['memory_s']*1e3:.3f}ms "
-                  f"collective={r['collective_s']*1e3:.3f}ms dominant={r['dominant']} "
-                  f"mem/dev={res['memory']['per_device_total']/2**30:.2f}GiB "
-                  f"seconds={res['compile_seconds']:.1f}", flush=True)
-        if args.out:
-            os.makedirs(args.out, exist_ok=True)
-            fname = res["cell"].replace("|", "_") + ".json"
-            with open(os.path.join(args.out, fname), "w") as f:
-                json.dump(res, f, indent=1)
-    return 1 if failed else 0
+    if args.jobs > 1:
+        pool = ProcessPoolExecutor(args.jobs, mp_context=multiprocessing.get_context("spawn"))
+        results = pool.map(_run_guarded, *zip(*cells))
+    else:
+        pool, results = None, (_run_guarded(*c) for c in cells)
+    failed = missed = 0
+    try:
+        for res in results:
+            failed += res.get("status") == "error"
+            line = {k: res.get(k) for k in ("cell", "status", "reason", "error")}
+            print(json.dumps(line), flush=True)
+            if res.get("status") == "ok":
+                r = res["roofline"]
+                print(f"  compute={r['compute_s']*1e3:.3f}ms memory={r['memory_s']*1e3:.3f}ms "
+                      f"collective={r['collective_s']*1e3:.3f}ms dominant={r['dominant']} "
+                      f"mem/dev={res['memory']['per_device_total']/2**30:.2f}GiB "
+                      f"seconds={res['compile_seconds']:.1f}", flush=True)
+                fid = res["fidelity"]
+                if fid is not None:
+                    missed += not fid["in_aim"]
+                    rest = (f" (without attention x{fid['rest_ratio']:.4f})"
+                            if "rest_ratio" in fid else "")
+                    print(f"  reference: dot_flops x{fid['dot_flops_ratio']:.4f}{rest} "
+                          f"argument_bytes {fid['argument_bytes_extra']:+d} "
+                          f"{'in aim' if fid['in_aim'] else 'OUTSIDE THE AIM'}", flush=True)
+            if args.out:
+                os.makedirs(args.out, exist_ok=True)
+                fname = res["cell"].replace("|", "_") + ".json"
+                with open(os.path.join(args.out, fname), "w") as f:
+                    json.dump(res, f, indent=1)
+    finally:
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
+    return 1 if failed or missed else 0
 
 
 if __name__ == "__main__":

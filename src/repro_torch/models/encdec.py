@@ -27,7 +27,7 @@ def _cross_attention_apply(p: nn.Attention, x, memory_kv, cfg: ModelConfig):
     gq = hq // g
     q = nn.reshape(x @ p.wq, bsz, sq, g, gq, hd).permute(0, 2, 3, 1, 4)
     scores = nn._qk(q, memory_kv["k"]) * (hd ** -0.5)
-    out = nn._pv(torch.softmax(scores, dim=-1), memory_kv["v"]).to(x.dtype)
+    out = nn._pv(nn.softmax_rows(scores), memory_kv["v"]).to(x.dtype)
     out = nn.reshape(out.permute(0, 3, 1, 2, 4), bsz, sq, hq * hd)
     return nn.reduce_pending(out @ p.wo)
 

@@ -58,7 +58,8 @@ class Adapter(tnn.Module):
 def adapter_apply(p: Adapter, x: torch.Tensor, slot_ids: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d); slot_ids: (B,) -> (B, S, out).  Per-request gather is
     cheap because adapters are low-rank (the 'take' strategy)."""
-    return torch.bmm(torch.bmm(x, nn.take_rows(p.a, slot_ids)), nn.take_rows(p.b, slot_ids))
+    down = nn.reduce_pending(torch.bmm(x, nn.take_rows(p.a, slot_ids)))
+    return torch.bmm(down, nn.take_rows(p.b, slot_ids))
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +253,8 @@ def _embed_inputs(params: LM, batch, cfg: ModelConfig):
 
 def banked_logits(bank_head: nn.Weight, x, cfg: ModelConfig, slot_ids):
     """The banked head: each row's (d, V) slot of the bank, f32 logits."""
-    w = nn.take_rows(bank_head.w, slot_ids)  # (B, d, V)
+    w = nn.take_rows(bank_head.w, slot_ids)  # (B, d, V), V as the bank shards it
+    x = nn.whole_features(x)
     return nn.mask_padded_vocab(torch.bmm(x.to(nn.F32), w.to(nn.F32)), cfg)
 
 
@@ -350,7 +352,9 @@ def lm_decode_step(params: LM, tokens, cache, cache_len, cfg: ModelConfig,
     cache)."""
     x = nn.embed_apply(params.embed, tokens)
     bsz = x.shape[0]
-    positions = torch.as_tensor(cache_len, device=x.device).reshape(-1, 1).expand(bsz, 1)
+    positions = None
+    if cfg.family != "ssm":  # the mamba layers read no position
+        positions = torch.as_tensor(cache_len, device=x.device).reshape(-1, 1).expand(bsz, 1)
     moe_capacity = None
     if cfg.family == "moe":
         # decode must never drop: worst case all rows route to one expert

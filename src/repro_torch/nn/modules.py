@@ -21,6 +21,7 @@ Conventions
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -68,10 +69,14 @@ class _DTensorReshape(torch.autograd.Function):
 
 def reshape(t: torch.Tensor, *shape: int) -> torch.Tensor:
     """``t.reshape(*shape)``.  DTensor refuses to split or merge a sharded
-    dim unevenly (smollm's 15 heads over 16 ranks, 4 SSD chunks over 16),
-    in the forward pass or in the gradient's: such a DTensor is first
-    replicated on the dims after its unchanged leading ones, as GSPMD
-    replicates them."""
+    dim whose shard boundaries do not fall on the new dims' (smollm's 960
+    q columns over 16 ranks are 60 each, which no 64-wide head holds), in
+    the forward pass or in the gradient's: such a DTensor is first
+    replicated on the dims after its unchanged leading ones.  The gather
+    stays because no rank holds whole rows of the new dims; GSPMD reshards
+    there too.  Even splits (32 heads of 128 over 16 ranks) stay sharded:
+    DTensor reshapes them itself.  The mamba block (``nn.ssd``) and the
+    attention (``_flash_shards``) pick their own layouts after it."""
     if not isinstance(t, DTensor):
         return t.reshape(*shape)
     return _DTensorReshape.apply(t, shape)
@@ -87,6 +92,101 @@ def reduce_pending(t: torch.Tensor) -> torch.Tensor:
         return t
     return t.redistribute(t.device_mesh,
                           [Replicate() if p.is_partial() else p for p in t.placements])
+
+
+def project(x: torch.Tensor, w: torch.Tensor, *, split_idle: bool = True) -> torch.Tensor:
+    """``x @ w`` for a weight ``w``: (K, N), or (E, K, N) with ``x`` (E, C,
+    K) (the experts' batched products).  Plain tensors multiply as they
+    are.  DTensors multiply their local shards, laid out per mesh dim as
+    GSPMD partitions the product (the reference's layout), with every
+    gradient's placement stated, so that the backward pass's products are
+    the local ones on every PyTorch release:
+
+    * ``x``'s pending sums are reduced first;
+    * ``w`` shards N (column-parallel): ``x``'s K made whole there; the
+      output shards N, ``x``'s gradient is a partial sum;
+    * ``w`` shards E: ``x`` takes its experts; the output shards E;
+    * ``x`` shards a batch or token dim: ``w`` is gathered there (FSDP's
+      ZeRO-3), its gradient a partial sum; the output keeps the shard;
+    * ``w`` shards K (row-parallel; FSDP's d of the experts, whose tokens
+      every rank holds whole), ``x`` shards K, or both hold a 2-D product
+      whole on the "data" dim when it divides K (a decode batch of one
+      leaves "data" idle; "model" holds a weight whose shards were dropped
+      whole, and the pods of a multi-pod mesh each keep their own copy, as
+      GSPMD does): the contraction is split, each rank multiplying its
+      K slices (local, no collective), and the partial products are
+      all-reduced;
+      ``split_idle=False`` keeps an idle dim's product whole (the
+      vocabulary head: GSPMD keeps mamba2-130m's whole on the idle "data"
+      dim of a decode batch of one), and so does a batched product (GSPMD
+      keeps the experts' whole over "data" when serving);
+    * otherwise the product is whole there."""
+    if not isinstance(x, DTensor):
+        return x @ w
+    x = reduce_pending(x)
+    mesh, last, batched = x.device_mesh, x.ndim - 1, w.ndim == 3
+    k_dim = w.ndim - 2
+    # a K shard on a dim where w shards columns (an adapter's output in the
+    # residual) moves to an idle dim of that size, as GSPMD moves it
+    moved = list(x.placements)
+    for i, (a, b) in enumerate(zip(x.placements, w.placements)):
+        if a.is_shard(last) and b.is_shard(w.ndim - 1):
+            for j, (c, e) in enumerate(zip(moved, w.placements)):
+                if c.is_replicate() and e.is_replicate() and mesh.size(j) == mesh.size(i):
+                    moved[i], moved[j] = Replicate(), Shard(last)
+                    break
+    if moved != list(x.placements):
+        x = x.redistribute(mesh, moved)
+    xp, wp, out = list(x.placements), list(w.placements), []
+    x_grad, w_grad, idle = [], [], []
+    k_ways = 1
+    for i, (a, b) in enumerate(zip(x.placements, w.placements)):
+        n = mesh.size(i)
+        if batched and b.is_shard(0):                     # experts
+            xp[i], x_grad_i, w_grad_i, o = Shard(0), Shard(0), b, Shard(0)
+        elif a.is_shard() and a.dim < last and not batched:   # batch, tokens
+            wp[i], x_grad_i, w_grad_i, o = Replicate(), a, Partial(), a
+        elif b.is_shard(w.ndim - 1):                       # columns
+            xp[i], x_grad_i, w_grad_i, o = Replicate(), Partial(), b, Shard(last)
+        elif b.is_shard(k_dim) or a.is_shard(last) or (
+                split_idle and not batched and n > 1 and mesh.mesh_dim_names[i] == "data"
+                and x.shape[-1] % (k_ways * n) == 0 and a.is_replicate()):
+            k_ways *= n                                    # contraction
+            if not b.is_shard(k_dim):
+                idle.append(i)
+            xp[i], wp[i] = Shard(last), Shard(k_dim)
+            x_grad_i, w_grad_i, o = Shard(last), Shard(k_dim), Partial()
+        else:                                              # whole
+            xp[i], wp[i], x_grad_i, w_grad_i, o = Replicate(), Replicate(), \
+                Replicate(), Replicate(), Replicate()
+        x_grad.append(x_grad_i), w_grad.append(w_grad_i), out.append(o)
+    xl = x.redistribute(mesh, xp).to_local(grad_placements=x_grad)
+    wl = w.redistribute(mesh, wp).to_local(grad_placements=w_grad)
+    shape = (*x.shape[:-1], w.shape[-1])
+    y = DTensor.from_local(xl @ wl, mesh, out, run_check=False, shape=torch.Size(shape),
+                           stride=torch.empty(shape, device="meta").stride())
+    ways = 1
+    for i in idle:
+        ways *= mesh.size(i)
+    if idle and not any(o.is_shard(last) for o in out) and shape[-1] % ways == 0:
+        # an output no dim shards by columns (a residual branch) leaves an
+        # idle dim's sums scattered over its features, as GSPMD leaves them:
+        # the next products split their contraction there again
+        return y.redistribute(mesh, [Shard(last) if i in idle else
+                                     (Replicate() if o.is_partial() else o)
+                                     for i, o in enumerate(out)])
+    return reduce_pending(y)
+
+
+def whole_features(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's pending sums reduced and its last dim whole (the batch
+    and token shards kept); other tensors as they are.  The head reads
+    whole feature rows, so that its vocabulary stays sharded."""
+    if not isinstance(x, DTensor):
+        return x
+    last = x.ndim - 1
+    want = [Replicate() if p.is_partial() or p.is_shard(last) else p for p in x.placements]
+    return x if want == list(x.placements) else x.redistribute(x.device_mesh, want)
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +290,19 @@ def _group_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return DTensor.from_local(out, mesh, po, run_check=False)
 
 
+def softmax_rows(scores: torch.Tensor) -> torch.Tensor:
+    """``torch.softmax`` over the last dim.  A DTensor whose last dim is
+    whole runs it on each rank's rows: DTensor's rule for the backward
+    (``_softmax_backward_data``) fails with its heads sharded on some
+    PyTorch releases."""
+    if not isinstance(scores, DTensor) or any(
+            p.is_shard(scores.ndim - 1) or p.is_partial() for p in scores.placements):
+        return torch.softmax(scores, dim=-1)
+    out = torch.softmax(scores.to_local(), dim=-1)
+    return DTensor.from_local(out, scores.device_mesh, scores.placements, run_check=False,
+                              shape=scores.shape, stride=scores.stride())
+
+
 def _qk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """(B, G, gq, Sq, D) x (B, G, Sk, D) -> (B, G, gq, Sq, Sk) in f32."""
     return _group_matmul(q.to(F32), k.to(F32).transpose(-1, -2)[:, :, None])
@@ -201,8 +314,21 @@ def _pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return _group_matmul(p.to(v.dtype).to(F32), v.to(F32)[:, :, None])
 
 
+def _tiling(heads: int, g: int, gq: int, sq: int, n: int):
+    """How GSPMD tiles attention over a mesh dim of size ``n`` that splits
+    neither the ``g`` kv groups nor the ``heads`` (``g`` x ``gq``): the
+    heads ``gcd(heads, n)`` ways, whole groups or heads within one group,
+    and the rest of the dim over the ``sq`` query tokens.  (head ways,
+    token ways), or None where no such tiling exists."""
+    hw = math.gcd(heads, n)
+    hp = heads // hw
+    if hw == 1 or (g % hw and gq % hp) or sq % (n // hw):
+        return None
+    return hw, n // hw
+
+
 def _flash_shards(q, k, v, *, q_offset: int, q_block: int,
-                  seq_shard_axis: Optional[str], **kw):
+                  seq_shard_axis: Optional[str], tile: bool = False, **kw):
     """``_flash_body`` of DTensors, run on each rank's shards with no
     collective inside the block loops.  Per mesh dim: a dim sharding q's
     batch keeps it (k and v follow); ``seq_shard_axis`` shards q's tokens
@@ -213,13 +339,20 @@ def _flash_shards(q, k, v, *, q_offset: int, q_block: int,
     in one group shards the heads: each rank takes its heads of q and their
     group of k and v (gradients partial), and the output is (B, ways,
     G·gq / ways, Sq, D) sharded on dim 1, the heads in their order, as
-    GSPMD shards the q heads; any other dim holds q, k and v whole."""
+    GSPMD shards the q heads.  With ``tile``, a dim that splits neither is
+    tiled as GSPMD tiles it (``_tiling``: llava-next-34b's 56 heads in 8
+    groups over 16 ranks, the groups 8 ways and the tokens 2), each rank
+    taking its heads' tile of q's tokens (gradients partial), and the
+    output gathered there, the projection after it reading whole heads.
+    Any other dim holds q, k and v whole, as GSPMD keeps them
+    (smollm-360m's 15 heads over 16 ranks share no factor)."""
     mesh = q.device_mesh
-    bsz, g, gq, sq, _ = q.shape
+    bsz, g, gq, sq, d = q.shape
     heads = g * gq
     qp, kvp, head_dims = [], [], []
     b_ways = g_ways = h_ways = s_ways = 1
     head_rank = 0
+    tile_dim = None
     offset = q_offset
     for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, q.placements)):
         n = mesh.size(i)
@@ -227,21 +360,27 @@ def _flash_shards(q, k, v, *, q_offset: int, q_block: int,
             b_ways *= n
             qp.append(Shard(0))
             kvp.append(Shard(0))
-        elif name == seq_shard_axis and sq % (s_ways * n) == 0:
+        elif name == seq_shard_axis and tile_dim is None and sq % (s_ways * n) == 0:
             s_ways *= n
             offset += mesh.get_local_rank(i) * (sq // s_ways)
             qp.append(Shard(3))
             kvp.append(Replicate())
-        elif h_ways == 1 and g % (g_ways * n) == 0:
+        elif tile_dim is None and h_ways == 1 and g % (g_ways * n) == 0:
             g_ways *= n
             qp.append(Shard(1))
             kvp.append(Shard(1))
-        elif (g_ways == 1 and heads % (h_ways * n) == 0
+        elif (tile_dim is None and g_ways == 1 and heads % (h_ways * n) == 0
               and gq % (heads // (h_ways * n)) == 0):
             h_ways *= n
             head_rank = head_rank * n + mesh.get_local_rank(i)
             head_dims.append(i)
             qp.append(Shard(1))
+            kvp.append(Replicate())
+        elif (tile and n > 1 and tile_dim is None and g_ways == h_ways == s_ways == 1
+              and _tiling(heads, g, gq, sq, n)):
+            tile_dim = i
+            head_dims.append(i)
+            qp.append(Replicate())
             kvp.append(Replicate())
         else:
             qp.append(Replicate())
@@ -259,18 +398,43 @@ def _flash_shards(q, k, v, *, q_offset: int, q_block: int,
         hp = heads // h_ways
         grp, j = divmod(head_rank * hp, gq)
         ql, kl, vl = ql[:, grp:grp + 1, j:j + hp], kl[:, grp:grp + 1], vl[:, grp:grp + 1]
-    out = _flash_body(ql, kl, vl, q_offset=offset, q_block=q_block, **kw)
-    out = DTensor.from_local(out, mesh, qp, run_check=False)
-    if s_ways > 1:
-        # the tokens are sharded for attention only: the projection after
-        # it flattens (B, S), which DTensor refuses with S sharded
-        out = out.redistribute(mesh, [Replicate() if p.is_shard(3) else p for p in qp])
-    return out
+    if tile_dim is None:
+        out = _flash_body(ql, kl, vl, q_offset=offset, q_block=q_block, **kw)
+        out = DTensor.from_local(out, mesh, qp, run_check=False)
+        if s_ways > 1:
+            # the tokens are sharded for attention only: the projection after
+            # it flattens (B, S), which DTensor refuses with S sharded
+            out = out.redistribute(mesh, [Replicate() if p.is_shard(3) else p for p in qp])
+        return out
+    n = mesh.size(tile_dim)
+    hw, tw = _tiling(heads, g, gq, sq, n)
+    hp, st = heads // hw, sq // tw
+    ht, tt = divmod(mesh.get_local_rank(tile_dim), tw)
+    if g % hw == 0:                                   # whole groups
+        gl = g // hw
+        ql, kl, vl = ql[:, ht * gl:(ht + 1) * gl], kl[:, ht * gl:(ht + 1) * gl], \
+            vl[:, ht * gl:(ht + 1) * gl]
+    else:                                             # heads within one group
+        grp, j = divmod(ht * hp, gq)
+        ql, kl, vl = ql[:, grp:grp + 1, j:j + hp], kl[:, grp:grp + 1], vl[:, grp:grp + 1]
+    out = _flash_body(ql[:, :, :, tt * st:(tt + 1) * st], kl, vl, q_offset=offset + tt * st,
+                      q_block=math.gcd(q_block, st), **kw)
+    shape = (bsz, n, hp, st, d)
+    tiles = DTensor.from_local(out.reshape(out.shape[0], 1, hp, st, d), mesh,
+                               [Shard(1) if i == tile_dim else p for i, p in enumerate(qp)],
+                               run_check=False, shape=torch.Size(shape),
+                               stride=torch.empty(shape, device="meta").stride())
+    # gathered: each rank holds a tile of heads x tokens, which no placement
+    # of the (B, S, G·gq·D) output that the projection reads describes
+    whole = tiles.redistribute(mesh, qp)
+    whole = reshape(whole, bsz, hw, tw, hp, st, d).permute(0, 1, 3, 2, 4, 5)
+    return reshape(whole, bsz, g, gq, sq, d)
 
 
 def _flash_body(q, k, v, *, causal: bool, window: Optional[int],
                 q_offset: int, k_offset: int, q_block: int, k_block: int,
-                remat: bool = False, seq_shard_axis: Optional[str] = None):
+                remat: bool = False, seq_shard_axis: Optional[str] = None,
+                tile: bool = False):
     """Online-softmax attention.
 
     q: (B, G, gq, Sq, D); k, v: (B, G, Skv, D).  Offsets give absolute
@@ -282,14 +446,16 @@ def _flash_body(q, k, v, *, causal: bool, window: Optional[int],
     of saving its per-iteration softmax residuals (flash-style backward).
     ``seq_shard_axis``: on DTensors, shard q's tokens over this mesh axis
     (``_flash_shards``) — recovers TP parallelism for archs whose head
-    count does not divide the TP degree.  Plain tensors have no mesh, and
-    it changes nothing.
+    count does not divide the TP degree.  ``tile``: on DTensors, tile a
+    mesh dim that splits neither the groups nor the heads as GSPMD does
+    (``_flash_shards``).  Plain tensors have no mesh, and neither changes
+    anything.
     """
     if isinstance(q, DTensor):
         return _flash_shards(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, k_offset=k_offset, q_block=q_block,
                              k_block=k_block, remat=remat,
-                             seq_shard_axis=seq_shard_axis)
+                             seq_shard_axis=seq_shard_axis, tile=tile)
     bsz, g, gq, sq, d = q.shape
     scale = d ** -0.5
     dev = q.device
@@ -392,6 +558,42 @@ def _decode_attention_int8(q, k, v, kv_cache, slot, valid, hd):
     return out, kv_cache
 
 
+def _idle_heads(probs, cv):
+    """Decode attention's probabilities and values for the value product,
+    and the mesh dims it splits the q heads over.  The "data" dim, when it
+    holds both whole (a decode batch of one leaves it idle; the pods of a
+    multi-pod mesh each keep their own, as GSPMD keeps them) and divides
+    the G x gq q heads, splits them for the value product only, as GSPMD
+    does (it repeats the scores on every "data" rank): the probabilities
+    as (B, G·gq, 1, 1, L), each head with its group's values (B, G·gq, L,
+    D), sharded on dim 1.  Otherwise (plain tensors, no such dim) both as
+    they are and no dim."""
+    if not isinstance(probs, DTensor):
+        return probs, cv, []
+    mesh = probs.device_mesh
+    bsz, g, gq, s, length = probs.shape
+    idle = []
+    ways = 1  # the q heads' shards already: the groups' (dim 1) and gq's (dim 2)
+    for i, a in enumerate(probs.placements):
+        ways *= mesh.size(i) if a.is_shard(1) or a.is_shard(2) else 1
+    for i, (a, b) in enumerate(zip(probs.placements, cv.placements)):
+        n = mesh.size(i)
+        if (a.is_replicate() and b.is_replicate() and n > 1 and mesh.mesh_dim_names[i] == "data"
+                and (g * gq) % (ways * n) == 0):
+            idle.append(i)
+            ways *= n
+    if not idle:
+        return probs, cv, []
+
+    def split(t):
+        return t.redistribute(mesh, [Shard(1) if i in idle else p
+                                     for i, p in enumerate(t.placements)])
+
+    # (B, G, L, D) -> (B, G·gq, L, D), each head its group's rows
+    heads = cv[:, :, None].expand(bsz, g, gq, *cv.shape[2:]).reshape(bsz, g * gq, *cv.shape[2:])
+    return split(reshape(probs, bsz, g * gq, 1, s, length)), split(heads), idle
+
+
 def _pick_block(s: int, target: int) -> int:
     b = min(target, s)
     while s % b:
@@ -415,9 +617,14 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     bsz, s, _ = x.shape
     hq, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gq = hq // g
-    q = reshape(x @ p.wq, bsz, s, hq, hd)
-    k = reshape(x @ p.wk, bsz, s, g, hd)
-    v = reshape(x @ p.wv, bsz, s, g, hd)
+    # under FSDP (q's weight sharded over its rows) the reference runs
+    # attention on the whole batch on every FSDP rank with its heads tiled;
+    # the port keeps its batch split there and tiles no heads (arctic-480b:
+    # the same work per rank)
+    tile = not (isinstance(p.wq, DTensor) and any(pl.is_shard(0) for pl in p.wq.placements))
+    q = reshape(project(x, p.wq), bsz, s, hq, hd)
+    k = reshape(project(x, p.wk), bsz, s, g, hd)
+    v = reshape(project(x, p.wv), bsz, s, g, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     # (B, G, gq, S, D) / (B, G, S, D)
@@ -430,7 +637,7 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
             q, k, v, causal=causal, window=cfg.sliding_window,
             q_offset=0, k_offset=0, q_block=_pick_block(s, q_block),
             k_block=_pick_block(s, k_block), remat=cfg.flash_remat,
-            seq_shard_axis="model" if cfg.seq_shard_attention else None)
+            seq_shard_axis="model" if cfg.seq_shard_attention else None, tile=tile)
         new_cache = {"k": k, "v": v}
     else:
         lcache = kv_cache["k"].shape[2]
@@ -450,12 +657,17 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
             _write_rows(cv, v, slot)
             scores = _qk(q, ck) * (hd ** -0.5)
             scores = torch.where(valid[:, None, None, None], scores, NEG)
-            out = _pv(torch.softmax(scores, dim=-1), cv)
+            probs, vd, idle = _idle_heads(torch.softmax(scores, dim=-1), cv)
+            out = _pv(probs, vd)
+            if idle:
+                out = reshape(out.redistribute(out.device_mesh, [
+                    Replicate() if i in idle else p for i, p in enumerate(out.placements)]),
+                    bsz, g, gq, s, hd)
             new_cache = kv_cache
         out = out.to(x.dtype)
 
     out = reshape(out.permute(0, 3, 1, 2, 4), bsz, s, hq * hd)
-    return reduce_pending(out @ p.wo), new_cache
+    return project(out, p.wo), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -472,8 +684,8 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu((x @ p.wg).to(F32)).to(x.dtype)
-    return reduce_pending((h * (x @ p.wu)) @ p.wd)
+    h = F.silu(project(x, p.wg).to(F32)).to(x.dtype)
+    return project(h * project(x, p.wu), p.wd)
 
 
 # ---------------------------------------------------------------------------
@@ -506,18 +718,34 @@ def embed_apply(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]``.  With DTensor ids it runs on each rank's ids against
-    the whole table (gathered once), out as the ids are placed: DTensor's
-    own rules for the lookup (with ids sharded on two mesh dims) and for
-    its backward (an ``index_put``) fail on some PyTorch releases.  Each
-    rank's table gradient is then its ids' sum, a partial sum over the
-    mesh dims that split the ids, which DTensor reduces."""
+    """``table[ids]``.  With DTensor ids it runs on each rank's ids, out as
+    the ids are placed: DTensor's own rules for the lookup (with ids
+    sharded on two mesh dims) and for its backward (an ``index_put``) fail
+    on some PyTorch releases.  Per mesh dim, the table is gathered where it
+    shards its rows or the ids are sharded, and keeps a shard of a later
+    dim (the banked head's vocabulary, an adapter's width), which the
+    output then carries.  Each rank's table gradient is its ids' sum, a
+    partial sum over the mesh dims that split the ids, which DTensor
+    reduces."""
     if not isinstance(ids, DTensor):
         return table[ids]
-    grad = [Partial() if p.is_shard() else Replicate() for p in ids.placements]
-    whole = table.full_tensor(grad_placements=grad) if isinstance(table, DTensor) else table
-    out = whole[ids.to_local()]
-    return DTensor.from_local(out, ids.device_mesh, list(ids.placements), run_check=False)
+    if not isinstance(table, DTensor):
+        return DTensor.from_local(table[ids.to_local()], ids.device_mesh,
+                                  list(ids.placements), run_check=False)
+    mesh = ids.device_mesh
+    keep, grad, out = [], [], []
+    for ip, tp in zip(ids.placements, table.placements):
+        if ip.is_shard():
+            keep.append(Replicate()), grad.append(Partial()), out.append(ip)
+        elif tp.is_shard() and tp.dim > 0:
+            keep.append(tp), grad.append(tp), out.append(Shard(ids.ndim + tp.dim - 1))
+        else:
+            keep.append(Replicate()), grad.append(Replicate()), out.append(Replicate())
+    local = table.redistribute(mesh, keep).to_local(grad_placements=grad)
+    shape = (*ids.shape, *table.shape[1:])
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local[ids.to_local()], mesh, out, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
 
 
 def mask_padded_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -529,11 +757,13 @@ def mask_padded_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def logits_apply(embed: Embed, head: Weight, x: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    """Project to the (padded) vocab in f32; padded rows masked to f32's min."""
+    """Project to the (padded) vocab in f32; padded rows masked to f32's min.
+    On DTensors the logits keep the table's vocabulary shards
+    (``project``)."""
     if cfg.tie_embeddings:
-        logits = x.to(F32) @ embed.embedding.to(F32).t()
+        logits = project(x.to(F32), embed.embedding.to(F32).t(), split_idle=False)
     else:
-        logits = x.to(F32) @ head.w.to(F32)
+        logits = project(x.to(F32), head.w.to(F32), split_idle=False)
     return mask_padded_vocab(logits, cfg)
 
 

@@ -18,7 +18,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.nn.modules import F32, _dense_init, cdtype, reshape
+from repro_torch.nn.modules import F32, _dense_init, cdtype, project, reshape
 
 
 class MoE(nn.Module):
@@ -110,7 +110,8 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, *,
         # bincount, nor (on some PyTorch releases) for the dispatch's
         # index_put: route, dispatch and combine on every rank's local copy
         # of the replicated tokens, ids and weights; only the expert
-        # products run on DTensors (the experts sharded)
+        # products (``project``: the experts over "model", FSDP's d split)
+        # run on DTensors
         xt, gate_w = _whole(xt).to_local(), _whole(gate_w).to_local()
         expert_ids = expert_ids.full_tensor()
 
@@ -127,10 +128,10 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, *,
     if mesh is not None:
         he = DTensor.from_local(he, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
-    g = torch.bmm(he, p.wg.to(F32))
-    u = torch.bmm(he, p.wu.to(F32))
+    g = project(he, p.wg.to(F32))
+    u = project(he, p.wu.to(F32))
     hidden = (F.silu(g) * u).to(x.dtype)
-    out_e = torch.bmm(hidden.to(F32), p.wd.to(F32)).to(x.dtype)
+    out_e = project(hidden.to(F32), p.wd.to(F32)).to(x.dtype)
 
     if mesh is not None:
         out_e = _whole(out_e).to_local()

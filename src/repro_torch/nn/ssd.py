@@ -9,6 +9,14 @@ chunk) is a Python loop, the counterpart of the reference's ``lax.scan``.
 
 ``ssd_sequential`` is the token-recurrence oracle used by the tests; the
 decode path reuses the same recurrence for O(1)-state generation.
+
+On DTensors the block runs on each rank's heads (``_HeadShards``), as
+GSPMD lays the reference out: the "model" mesh dim splits the SSM heads in
+``torch.chunk``'s way (mamba2-130m's 24 heads over 16 ranks: 2 each on 12
+ranks), each rank projects its heads' z, x and dt and a slice of B and C
+(gathered whole), scans its heads, and its out-projection rows give a
+partial sum; the norm over d_inner and the C·Bᵀ scores (whose contraction
+over the state is split with B and C) are all-reduced.
 """
 
 from __future__ import annotations
@@ -16,10 +24,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.nn.modules import F32, RMSNorm, _const, _dense_init, cdtype, reshape, rmsnorm
+from repro_torch.nn.modules import (F32, RMSNorm, _const, _dense_init, cdtype, reduce_pending,
+                                    rmsnorm)
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -60,22 +69,13 @@ def _segsum(cum: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, diff, -torch.inf)
 
 
-def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """``torch.cumsum``; a DTensor's on each rank's shard, the summed dim
-    whole (the backward's ``flip`` has no DTensor rule on some releases)."""
-    if not isinstance(x, DTensor):
-        return torch.cumsum(x, dim)
-    mesh = x.device_mesh
-    keep = [Replicate() if p.is_shard(dim) or p.is_partial() else p for p in x.placements]
-    local = torch.cumsum(x.redistribute(mesh, keep).to_local(), dim)
-    return DTensor.from_local(local, mesh, keep, run_check=False)
-
-
-def ssd_chunked(x, dt, a, b, c, chunk: int, init_state=None):
+def ssd_chunked(x, dt, a, b, c, chunk: int, init_state=None, scores=None):
     """SSD over a full sequence.
 
     x: (B, S, H, P) values; dt: (B, S, H) positive step sizes;
     a: (H,) negative decay rates; b, c: (B, S, N) (single B/C group).
+    ``scores``: the (B, S / chunk, chunk, chunk) C·Bᵀ products within each
+    chunk, when the caller has them (``_HeadShards``); else computed here.
     Returns y: (B, S, H, P) and final state (B, H, P, N).
     """
     bsz, s, h, p = x.shape
@@ -84,18 +84,19 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, init_state=None):
         raise ValueError(f"seq {s} not divisible by chunk {chunk}")
     nc = s // chunk
 
-    xc = reshape(x, bsz, nc, chunk, h, p).to(F32)
-    dtc = reshape(dt, bsz, nc, chunk, h).to(F32)
-    bc = reshape(b, bsz, nc, chunk, n).to(F32)
-    cc = reshape(c, bsz, nc, chunk, n).to(F32)
+    xc = x.reshape(bsz, nc, chunk, h, p).to(F32)
+    dtc = dt.reshape(bsz, nc, chunk, h).to(F32)
+    bc = b.reshape(bsz, nc, chunk, n).to(F32)
+    cc = c.reshape(bsz, nc, chunk, n).to(F32)
 
     state = (torch.zeros((bsz, h, p, n), dtype=F32, device=x.device)
              if init_state is None else init_state.to(F32))
 
-    cum = _cumsum(dtc * a, 2)                                    # (B, C, L, H) inclusive
+    cum = torch.cumsum(dtc * a, 2)                                  # (B, C, L, H) inclusive
     # intra-chunk (dual quadratic form)
     lmat = torch.exp(_segsum(cum.transpose(2, 3)))               # (B, C, H, L, L)
-    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)             # (B, C, L, L)
+    if scores is None:
+        scores = torch.einsum("bcin,bcjn->bcij", cc, bc)         # (B, C, L, L)
     m = scores[:, :, None] * lmat                                # (B, C, H, i, j)
     xdt = xc * dtc[..., None]                                    # (B, C, L, H, P)
     y_intra = torch.einsum("bchij,bcjhp->bcihp", m, xdt)
@@ -110,7 +111,7 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, init_state=None):
     # inter-chunk (incoming state)
     y_inter = torch.einsum("bcin,bchpn->bcihp", cc, torch.stack(entering, dim=1))
     y_inter = y_inter * torch.exp(cum)[..., None]
-    y = reshape((y_intra + y_inter).to(x.dtype), bsz, s, h, p)
+    y = (y_intra + y_inter).to(x.dtype).reshape(bsz, s, h, p)
     return y, state
 
 
@@ -134,12 +135,7 @@ def ssd_decode_step(state, xt, dtt, a, bt, ct):
     decay = torch.exp(dtf * a)                                   # (B, H)
     upd = dtf[:, :, None, None] * bt.to(F32)[:, None, None, :] * xt.to(F32)[..., None]
     state = decay[..., None, None] * state + upd
-    if isinstance(state, DTensor):
-        # einsum flattens (H, P), which DTensor refuses when H is sharded
-        # unevenly (mamba2-130m's 24 heads over 16 ranks)
-        yt = (state * ct.to(F32)[:, None, None, :]).sum(-1)
-    else:
-        yt = torch.einsum("bn,bhpn->bhp", ct.to(F32), state)
+    yt = torch.einsum("bn,bhpn->bhp", ct.to(F32), state)
     return state, yt.to(xt.dtype)
 
 
@@ -154,9 +150,7 @@ def _split_proj(proj, cfg: ModelConfig):
 
 def _causal_conv(xbc, conv_w, conv_b, width: int):
     """Depthwise causal conv over (B, S, C)."""
-    # a cat, not F.pad: DTensor's pad fails on some releases
-    pad = torch.cat([torch.zeros((xbc.shape[0], width - 1, xbc.shape[2]),
-                                 dtype=xbc.dtype, device=xbc.device), xbc], dim=1)
+    pad = F.pad(xbc, (0, 0, width - 1, 0))
     out = sum(
         pad[:, i: i + xbc.shape[1], :] * conv_w[i][None, None, :]
         for i in range(width)
@@ -175,6 +169,8 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, *, ssm_state=None, conv_state=Non
 
     Returns (out (B,S,d), new_ssm_state, new_conv_state).
     """
+    if isinstance(x, DTensor):
+        return _HeadShards(p, x, cfg).apply(ssm_state, conv_state, pad_mask, last_valid)
     bsz, s, _ = x.shape
     di, h, n, conv_dim = ssm_dims(cfg)
     w = cfg.ssm_conv_width
@@ -205,7 +201,7 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, *, ssm_state=None, conv_state=Non
     if pad_mask is not None and ssm_state is None:
         dt = dt * pad_mask[..., None].to(dt.dtype)  # pads: no state update
     a = -torch.exp(p.A_log)
-    xh = reshape(xs, bsz, s, h, cfg.ssm_head_dim)
+    xh = xs.reshape(bsz, s, h, cfg.ssm_head_dim)
 
     if ssm_state is None:
         chunk = min(cfg.ssm_chunk, s)
@@ -217,9 +213,174 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, *, ssm_state=None, conv_state=Non
             ssm_state, xh[:, 0], dt[:, 0], a, bs[:, 0], cs[:, 0])
         y = yt[:, None]
     y = y + p.D[None, None, :, None].to(y.dtype) * xh
-    y = reshape(y, bsz, s, di)
+    y = y.reshape(bsz, s, di)
     y = rmsnorm(p.norm, y * F.silu(z.to(F32)).to(y.dtype), cfg.norm_eps)
     return y @ p.out_proj, new_state, new_conv_state
+
+
+class _HeadShards:
+    """The mamba block of DTensors on each rank's heads (module docstring).
+    Per mesh dim: "model" splits the heads; a dim sharding the batch keeps
+    it; any other dim holds the block whole.  Every weight is gathered
+    whole and sliced to the rank's heads, its gradient a partial sum."""
+
+    def __init__(self, p: Mamba, x, cfg: ModelConfig):
+        self.p, self.cfg = p, cfg
+        self.mesh = mesh = x.device_mesh
+        names = mesh.mesh_dim_names
+        self.mi = names.index("model") if "model" in names else None
+        ways = mesh.size(self.mi) if self.mi is not None else 1
+        rank = mesh.get_local_rank(self.mi) if self.mi is not None else 0
+        self.ways = ways
+        di, h, n, _ = ssm_dims(cfg)
+        size = -(-h // ways)                      # torch.chunk's split
+        self.lo = min(h, rank * size)
+        self.hi = min(h, self.lo + size)
+        # B and C projected in slices of the state, gathered whole
+        self.n_part = n // ways if n % ways == 0 else n
+        self.n_lo = rank * self.n_part if n % ways == 0 else 0
+        # the batch's placements; the model dim and any other replicated
+        self.keep = [p if p.is_shard(0) and i != self.mi else Replicate()
+                     for i, p in enumerate(x.placements)]
+        # the gradient of what every model rank reads whole: a partial sum
+        self.part = [Partial() if i == self.mi else k for i, k in enumerate(self.keep)]
+        self.x = reduce_pending(x)
+
+    def _at(self, i: int, placement) -> list:
+        return [placement if j == i else k for j, k in enumerate(self.keep)]
+
+    def local(self, t, grad=None):
+        """A batch-placed DTensor (or a host tensor) as this rank's local
+        tensor, the batch shard kept and the rest whole."""
+        if not isinstance(t, DTensor):
+            return t
+        return t.redistribute(self.mesh, self.keep).to_local(grad_placements=grad)
+
+    def weight(self, t):
+        """A parameter gathered whole; its gradient a partial sum over the
+        model dim (each rank reads its heads' slices) and the batch dims."""
+        whole = [Replicate()] * self.mesh.ndim
+        grad = [Partial() if i == self.mi or k.is_shard() else Replicate()
+                for i, k in enumerate(self.keep)]
+        return t.redistribute(self.mesh, whole).to_local(grad_placements=grad)
+
+    def dtensor(self, local, placements, shape):
+        return DTensor.from_local(local, self.mesh, placements, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=torch.empty(shape, device="meta").stride())
+
+    def gather(self, local, dim: int, shape):
+        """The rank's slice along ``dim`` (``torch.chunk``'s, of ``shape``),
+        gathered whole over the model dim; its gradient partial."""
+        if self.mi is None:
+            return local
+        t = self.dtensor(local, self._at(self.mi, Shard(dim)), shape)
+        return t.redistribute(self.mesh, self.keep).to_local(grad_placements=self.part)
+
+    def reduce(self, local, shape):
+        """Partial sums over the model dim, all-reduced; each rank reads the
+        sum for its own heads, so its gradient is a partial sum too."""
+        if self.mi is None:
+            return local
+        t = self.dtensor(local, self._at(self.mi, Partial()), shape)
+        return t.redistribute(self.mesh, self.keep).to_local(grad_placements=self.part)
+
+    def apply(self, ssm_state, conv_state, pad_mask, last_valid):
+        p, cfg = self.p, self.cfg
+        di, h, n, _ = ssm_dims(cfg)
+        hd, w = cfg.ssm_head_dim, cfg.ssm_conv_width
+        lo, hi, nl, nb = self.lo, self.hi, self.n_lo, self.n_part
+        x = self.local(self.x, grad=self.part)
+        bsz_l, s, _ = x.shape
+        bsz = self.x.shape[0]
+        hl = hi - lo
+        heads = slice(lo * hd, hi * hd)
+
+        w_in = self.weight(p.in_proj)
+        cols = torch.cat([w_in[:, heads], w_in[:, di:][:, heads],
+                          w_in[:, 2 * di + nl:2 * di + nl + nb],
+                          w_in[:, 2 * di + n + nl:2 * di + n + nl + nb],
+                          w_in[:, 2 * di + 2 * n + lo:2 * di + 2 * n + hi]], dim=1)
+        z, xin, b_part, c_part, dt_raw = torch.split(
+            x @ cols, [hl * hd, hl * hd, nb, nb, hl], dim=-1)
+        if nb == n:
+            b, c = b_part, c_part
+        else:
+            b = self.gather(b_part, 2, (bsz, s, n))
+            c = self.gather(c_part, 2, (bsz, s, n))
+
+        conv_w, conv_b = self.weight(p.conv_w), self.weight(p.conv_b)
+        cw = torch.cat([conv_w[:, heads], conv_w[:, di:]], dim=1)
+        cb = torch.cat([conv_b[heads], conv_b[di:]])
+        xbc = torch.cat([xin, b, c], dim=-1)      # (B, S, hl·P + 2N)
+        if conv_state is None:
+            conv_out = _causal_conv(xbc, cw, cb, w)
+            if last_valid is not None:
+                padded = F.pad(xbc, (0, 0, w - 1, 0))
+                start = torch.clamp(self.local(last_valid).long(), 0, s)
+                idx = start[:, None] + torch.arange(w - 1, device=x.device)
+                window = padded[torch.arange(bsz_l, device=x.device)[:, None], idx]
+            else:
+                window = xbc[:, -(w - 1):, :] if s >= w - 1 else F.pad(
+                    xbc, (0, 0, w - 1 - s, 0))
+        else:
+            cs = self.local(conv_state)
+            window = torch.cat([torch.cat([cs[..., heads], cs[..., di:]], dim=-1), xbc], dim=1)
+            conv_out = (torch.einsum("bwc,wc->bc", window, cw) + cb)[:, None, :]
+            window = window[:, 1:, :]
+        conv_out = F.silu(conv_out.to(F32)).to(x.dtype)
+        xs, bs, cs = torch.split(conv_out, [hl * hd, n, n], dim=-1)
+
+        dt = torch.logaddexp(dt_raw.to(F32) + self.weight(p.dt_bias)[lo:hi],
+                             torch.zeros((), dtype=F32, device=x.device))
+        if pad_mask is not None and ssm_state is None:
+            dt = dt * self.local(pad_mask)[..., None].to(dt.dtype)
+        a = -torch.exp(self.weight(p.A_log)[lo:hi])
+        xh = xs.reshape(bsz_l, s, hl, hd)
+
+        if ssm_state is None:
+            chunk = min(cfg.ssm_chunk, s)
+            while s % chunk:
+                chunk //= 2
+            chunk = max(chunk, 1)
+            scores = None
+            if nb != n:
+                # C·Bᵀ over this rank's slice of the state, all-reduced: the
+                # conv is per channel, so the slices' conv is conv_out's
+                sl = torch.cat([torch.arange(di + nl, di + nl + nb),
+                                torch.arange(di + n + nl, di + n + nl + nb)]).to(x.device)
+                bc_part = F.silu(_causal_conv(torch.cat([b_part, c_part], dim=-1),
+                                              conv_w[:, sl], conv_b[sl], w).to(F32))
+                b_conv, c_conv = bc_part.to(x.dtype).to(F32).split([nb, nb], dim=-1)
+                nc = s // chunk
+                part = torch.einsum("bcin,bcjn->bcij", c_conv.reshape(bsz_l, nc, chunk, nb),
+                                    b_conv.reshape(bsz_l, nc, chunk, nb))
+                scores = self.reduce(part, (bsz, nc, chunk, chunk))
+            y, state = ssd_chunked(xh, dt, a, bs, cs, chunk, scores=scores)
+        else:
+            state_in = self.local(ssm_state)[:, lo:hi]
+            state, yt = ssd_decode_step(state_in, xh[:, 0], dt[:, 0], a, bs[:, 0], cs[:, 0])
+            y = yt[:, None]
+        y = y + self.weight(p.D)[lo:hi][None, None, :, None].to(y.dtype) * xh
+        y = y.reshape(bsz_l, s, hl * hd)
+        g = (y * F.silu(z.to(F32)).to(y.dtype)).to(F32)
+        if self.ways == 1:
+            var = g.square().mean(dim=-1, keepdim=True)
+        else:  # the mean over the whole d_inner: each rank's sum, all-reduced
+            var = self.reduce(g.square().sum(dim=-1, keepdim=True), (bsz, s, 1)) / di
+        scale = self.weight(p.norm.scale)[heads]
+        yn = (g * torch.rsqrt(var + cfg.norm_eps) * scale.to(F32)).to(y.dtype)
+        out = yn @ self.weight(p.out_proj)[heads]
+        out = reduce_pending(self.dtensor(out, self._at(self.mi, Partial()) if self.mi is not None
+                                          else self.keep, (bsz, s, out.shape[-1])))
+        new_state = self.dtensor(state, self._at(self.mi, Shard(1)) if self.mi is not None
+                                 else self.keep, (bsz, h, hd, n))
+        new_state = new_state.redistribute(self.mesh, self.keep)
+        new_conv = torch.cat([self.gather(window[..., :hl * hd].reshape(bsz_l, w - 1, hl, hd),
+                                          2, (bsz, w - 1, h, hd)).reshape(bsz_l, w - 1, di),
+                              window[..., hl * hd:]], dim=-1)
+        new_conv = self.dtensor(new_conv, self.keep, (bsz, w - 1, new_conv.shape[-1]))
+        return out, new_state, new_conv
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, device):

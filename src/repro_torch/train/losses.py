@@ -7,11 +7,27 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 
+def _vocab_sharded(logits) -> bool:
+    """Whether a DTensor's last dim is split over a mesh dim of more than
+    one rank."""
+    if not isinstance(logits, DTensor):
+        return False
+    mesh = logits.device_mesh
+    return any(p.is_shard(logits.ndim - 1) and mesh.size(i) > 1
+               for i, p in enumerate(logits.placements))
+
+
 def cross_entropy(logits, labels, mask=None):
     """Token-level CE.  logits: (B, S, V) fp32 (padded-vocab rows already
     -inf-masked); labels: (B, S) integer; mask: (B, S) {0,1}."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
+    if _vocab_sharded(logits):
+        # each rank's max and exp-sum over its own columns, all-reduced:
+        # DTensor's logsumexp would gather the vocabulary whole
+        top = logits.detach().amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.exp(logits - top).sum(dim=-1)) + top[..., 0]
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
     if isinstance(logits, DTensor):
         # DTensor's gather along a sharded vocab dim fails; the masked sum
         # keeps the vocab dim sharded and is exact (one non-zero term)

@@ -103,3 +103,24 @@ def _leaves(tree, prefix=""):
     if isinstance(tree, torch.Tensor):
         return {prefix: tree.float().numpy()}
     return {prefix: np.asarray(tree, np.float32)}
+
+
+def prefill_rank(rank, arch, over, params_np, batch_np, shape):
+    """The forward pass (``api.apply``) of ``arch`` from the given
+    reference weights, its params sharded by ``rules_for`` for a prefill on
+    a ``shape`` mesh and the batch by ``batch_specs``; the logits whole."""
+    mesh = host_mesh(shape)
+    cfg = treg.get_config(arch).reduced(**over)
+    model = tapi.from_jax_params(params_np, cfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    rules = dryrun.rules_for(cfg, "prefill", mesh)
+    pspecs, _ = sharding.legalize(sharding.param_specs(model, rules),
+                                  dict(model.named_parameters()), mesh)
+    bspecs, _ = sharding.legalize(sharding.batch_specs(batch, rules),
+                                  sharding.tree_paths(batch), mesh)
+    sharding.distribute_state({"params": model, "opt": {}}, mesh,
+                              {"params": pspecs, "opt": {}})
+    batch = sharding.distribute_tree(batch, mesh, bspecs)
+    with torch.no_grad(), implicit_replication():
+        logits, _ = tapi.apply(model, batch, cfg)
+    return logits.full_tensor().numpy()
