@@ -260,9 +260,12 @@ Phases, in order; any failure raises and exits non-zero:
    ``prefill_32k`` and glm4-9b ``decode_32k`` single, and the repaired
    layouts' single-mesh cells: mamba2-130m, zamba2-7b and llava-next-34b
    ``prefill_32k``, seamless-m4t-medium ``decode_32k``, h2o-danube-3-4b
-   ``long_500k``, olmoe-1b-7b and arctic-480b ``train_4k``), one process per
-   cell, into ``build/dryrun_torch``, every cell ``ok`` and in the aim
-   against the reference's table (``dryrun.AIM``; one ``lm_dist d ...
+   ``long_500k``, olmoe-1b-7b and arctic-480b ``train_4k``; mamba2-130m
+   ``train_4k``, whose 24 heads 16 ranks do not divide, and glm4-9b
+   ``train_4k``, under FSDP, its attention held to its share of the
+   reference's from both sides), one process per cell, into
+   ``build/dryrun_torch``, every cell ``ok`` and in the aim against the
+   reference's table (``dryrun.AIM``, 0.95-1.05; one ``lm_dist d ...
    against the reference`` line each); ``benchmarks_torch/
    hillclimb.py`` (started once its three baselines are written),
    ``roofline.py`` and ``report.py`` over them, each exiting 0; (e) ``python
@@ -294,7 +297,10 @@ cache between calls where they fit.  ``xnor_matmul``'s ``library_ms`` is
 ``torch._int_mm`` on the +-1 int8 unpacked operands ((B, d) x (d, H) ->
 int32, equal to the kernel's output, which is checked; unpacked outside
 the timed window), where it takes the shape: it needs more than 16 rows,
-so the B = 1 row records none.
+so the B = 1 row records none.  ``banked_xnor_layer1``'s is
+``torch.baddbmm`` of the gathered biases, the +-1 rows and the slots' +-1
+weights as bf16 with an f32 output, checked equal to the kernel's
+output.
 """
 
 from __future__ import annotations
@@ -1906,7 +1912,9 @@ DRYRUN_CELLS = (                   # (d): (arch, shape, mesh)
     ("llava-next-34b", "prefill_32k", "single"),
     ("seamless-m4t-medium", "decode_32k", "single"),
     ("h2o-danube-3-4b", "long_500k", "single"), ("olmoe-1b-7b", "train_4k", "single"),
-    ("arctic-480b", "train_4k", "single"))
+    ("arctic-480b", "train_4k", "single"),
+    # the SSM block's uneven split; an FSDP cell's attention share
+    ("mamba2-130m", "train_4k", "single"), ("glm4-9b", "train_4k", "single"))
 HILLCLIMB_BASELINES = (("smollm-360m", "train_4k", "single"),
                        ("arctic-480b", "prefill_32k", "single"),
                        ("glm4-9b", "decode_32k", "single"))
@@ -2135,7 +2143,10 @@ def run_lm_dist_phase(*, counted, dev, out) -> None:
                 fail(f"lm_dist d: {cell['cell']} has no entry in the reference's table")
             cells[cell["cell"]]["fidelity"] = fid
             rest = (f", without attention x{fid['rest_ratio']:.4f} (attention "
-                    f"x{fid['attention_ratio']:.4f})" if "rest_ratio" in fid else "")
+                    f"x{fid['attention_ratio']:.4f}" if "rest_ratio" in fid else "")
+            if "attention_share" in fid:
+                rest += f", x{fid['attention_share']:.4f} of its share"
+            rest += ")" if rest else ""
             print(f"lm_dist d {cell['cell']} against the reference: dot_flops "
                   f"x{fid['dot_flops_ratio']:.4f}{rest}, argument_bytes "
                   f"{fid['argument_bytes_extra']:+d}", flush=True)
@@ -2423,11 +2434,25 @@ def main() -> int:
         if not torch.equal(got, single):
             fail(f"banked_xnor_layer1 active={act_v}: the flip differs from the single half")
         halves[("xnor", act_v)] = single
+    # the library yardstick: one batched product of the unpacked +-1 bf16
+    # operands, f32 out (exact: |d| <= 8192 sums of +-1), the slots'
+    # weights and biases gathered in the call as banked_matmul's is
+    fl64, nb = fl_x.to(torch.int64), N // BLOCK_B
+    x_pm = ref.unpack_bits(xw, D).to(torch.bfloat16).view(nb, BLOCK_B, D)
+    w_pm = ref.unpack_bits(both["w1p"], D).to(torch.bfloat16).transpose(1, 2).contiguous()
+    b1_db = both["b1"]
+    library = lambda: torch.baddbmm(b1_db[fl64][:, None], x_pm, w_pm[fl64],  # noqa: E731
+                                    out_dtype=torch.float32)
+    lib_out = library()
+    torch.cuda.synchronize()
+    if not torch.equal(lib_out.reshape(N, H), got):
+        fail("banked_xnor_layer1: torch.baddbmm on the unpacked operands differs from the kernel")
     b_ms, b_by = bound(N * W * 4 + used_slots(fl_x) * (H * W + H) * 4
                        + nbytes(fl_x) + N * H * 4, N * H * D, 0.0)
     record("banked_xnor", f"banked_xnor_layer1 K={K_DB}+{K_DB}",
            "src/repro_torch/kernels/csrc/banked_xnor_layer1.cu",
-           "src/repro/kernels/banked_matmul.py:172", 0.0, run_k, run_p, b_ms, b_by)
+           "src/repro/kernels/banked_matmul.py:172", 0.0, run_k, run_p, b_ms, b_by,
+           library=library)
 
     gen = torch.Generator().manual_seed(41)
     x_lm = torch.randn(N, LM_D, generator=gen)

@@ -25,19 +25,19 @@ def _cross_attention_apply(p: nn.Attention, x, memory_kv, cfg: ModelConfig):
     bsz, sq, _ = x.shape
     hq, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gq = hq // g
-    q = nn.reshape(x @ p.wq, bsz, sq, g, gq, hd).permute(0, 2, 3, 1, 4)
+    q = nn.reshape(nn.project(x, p.wq), bsz, sq, g, gq, hd).permute(0, 2, 3, 1, 4)
     scores = nn._qk(q, memory_kv["k"]) * (hd ** -0.5)
     out = nn._pv(nn.softmax_rows(scores), memory_kv["v"]).to(x.dtype)
     out = nn.reshape(out.permute(0, 3, 1, 2, 4), bsz, sq, hq * hd)
-    return nn.reduce_pending(out @ p.wo)
+    return nn.project(out, p.wo)
 
 
 def cross_kv(p: nn.Attention, memory, cfg: ModelConfig) -> dict:
     """Precompute cross-attention K/V from encoder memory: (B, Sm, d)."""
     bsz, sm, _ = memory.shape
     g, hd = cfg.n_kv_heads, cfg.head_dim
-    k = nn.reshape(memory @ p.wk, bsz, sm, g, hd).transpose(1, 2)
-    v = nn.reshape(memory @ p.wv, bsz, sm, g, hd).transpose(1, 2)
+    k = nn.reshape(nn.project(memory, p.wk), bsz, sm, g, hd).transpose(1, 2)
+    v = nn.reshape(nn.project(memory, p.wv), bsz, sm, g, hd).transpose(1, 2)
     return {"k": k, "v": v}
 
 
@@ -85,7 +85,7 @@ class EncDec(tnn.Module):
 
 def encode(params: EncDec, frames, cfg: ModelConfig):
     """frames: (B, S_enc, d) stub frame embeddings -> encoder memory."""
-    x = frames.to(nn.cdtype(cfg)) @ params.frame_proj.w
+    x = nn.project(frames.to(nn.cdtype(cfg)), params.frame_proj.w)
     bsz, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(bsz, s)
     for lp in params.enc_layers:

@@ -246,7 +246,7 @@ def stack_caches(per_layer: list[dict]) -> dict:
 def _embed_inputs(params: LM, batch, cfg: ModelConfig):
     x = nn.embed_apply(params.embed, batch["tokens"])
     if cfg.frontend == "patch" and "patch_embeds" in batch:
-        pe = batch["patch_embeds"].to(x.dtype) @ params.frontend_proj.w
+        pe = nn.project(batch["patch_embeds"].to(x.dtype), params.frontend_proj.w)
         x = torch.cat([pe, x], dim=1)
     return x
 

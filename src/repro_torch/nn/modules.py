@@ -112,8 +112,10 @@ def project(x: torch.Tensor, w: torch.Tensor, *, split_idle: bool = True) -> tor
       every rank holds whole), ``x`` shards K, or both hold a 2-D product
       whole on the "data" dim when it divides K (a decode batch of one
       leaves "data" idle; "model" holds a weight whose shards were dropped
-      whole, and the pods of a multi-pod mesh each keep their own copy, as
-      GSPMD does): the contraction is split, each rank multiplying its
+      whole, as GSPMD does), or the "pod" dim of such a batch where ``x``'s
+      features are scattered over a dim that ``w`` does not shard (the
+      residual that such a product left): the contraction is split, each
+      rank multiplying its
       K slices (local, no collective), and the partial products are
       all-reduced;
       ``split_idle=False`` keeps an idle dim's product whole (the
@@ -137,6 +139,12 @@ def project(x: torch.Tensor, w: torch.Tensor, *, split_idle: bool = True) -> tor
                     break
     if moved != list(x.placements):
         x = x.redistribute(mesh, moved)
+    # features scattered over a dim that w does not shard (a residual on a
+    # decode batch of one, as GSPMD leaves it): the idle pods split such a
+    # product's contraction further, as GSPMD splits it
+    scatter = 1
+    for a, b, n in zip(x.placements, w.placements, mesh.shape):
+        scatter *= n if a.is_shard(last) and b.is_replicate() else 1
     xp, wp, out = list(x.placements), list(w.placements), []
     x_grad, w_grad, idle = [], [], []
     k_ways = 1
@@ -150,7 +158,9 @@ def project(x: torch.Tensor, w: torch.Tensor, *, split_idle: bool = True) -> tor
             xp[i], x_grad_i, w_grad_i, o = Replicate(), Partial(), b, Shard(last)
         elif b.is_shard(k_dim) or a.is_shard(last) or (
                 split_idle and not batched and n > 1 and mesh.mesh_dim_names[i] == "data"
-                and x.shape[-1] % (k_ways * n) == 0 and a.is_replicate()):
+                and x.shape[-1] % (k_ways * n) == 0 and a.is_replicate()) or (
+                scatter > 1 and not batched and n > 1 and mesh.mesh_dim_names[i] == "pod"
+                and x.shape[-1] % (scatter * n) == 0 and a.is_replicate()):
             k_ways *= n                                    # contraction
             if not b.is_shard(k_dim):
                 idle.append(i)

@@ -10,13 +10,16 @@ chunk) is a Python loop, the counterpart of the reference's ``lax.scan``.
 ``ssd_sequential`` is the token-recurrence oracle used by the tests; the
 decode path reuses the same recurrence for O(1)-state generation.
 
-On DTensors the block runs on each rank's heads (``_HeadShards``), as
-GSPMD lays the reference out: the "model" mesh dim splits the SSM heads in
-``torch.chunk``'s way (mamba2-130m's 24 heads over 16 ranks: 2 each on 12
-ranks), each rank projects its heads' z, x and dt and a slice of B and C
-(gathered whole), scans its heads, and its out-projection rows give a
-partial sum; the norm over d_inner and the C·Bᵀ scores (whose contraction
-over the state is split with B and C) are all-reduced.
+On DTensors the block runs on each rank's shares (``_HeadShards``), as
+GSPMD lays the reference out, read from its HLO: the "model" mesh dim
+splits each part along its own axis in ``torch.chunk``'s way, which is
+GSPMD's padded split (mamba2-130m over 16 ranks: the in-projection's 3352
+columns 210 each, the conv's 1792 channels 112, the 24 heads 2 each on 12
+ranks, d_inner's 1536 channels 96 for the gated norm and the
+out-projection's rows), each rank's part gathered whole before the next;
+the norm over d_inner and the C·Bᵀ scores (their contraction over the
+state split 16 ways) are all-reduced, and the out-projection's rows give
+a partial sum.
 """
 
 from __future__ import annotations
@@ -219,32 +222,67 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, *, ssm_state=None, conv_state=Non
 
 
 class _HeadShards:
-    """The mamba block of DTensors on each rank's heads (module docstring).
-    Per mesh dim: "model" splits the heads; a dim sharding the batch keeps
-    it; any other dim holds the block whole.  Every weight is gathered
-    whole and sliced to the rank's heads, its gradient a partial sum."""
+    """The mamba block of DTensors laid out per rank as GSPMD lays out the
+    reference (module docstring).  Per mesh dim: "model" splits the block;
+    a dim sharding the batch keeps it; a dim over which the input's
+    features are scattered (a decode batch of one) splits the projections
+    (``fdims``); any other dim holds the block whole.  Every weight is
+    gathered whole and sliced, its gradient a partial sum.
+
+    On "model" each part takes ``torch.chunk``'s slice of its own axis,
+    the split GSPMD gets by padding that axis to a multiple of the ranks:
+    the in-projection's columns (mamba2-130m's 3352 as 16 x 210), the
+    conv's channels (1792 as 16 x 112), the SSM heads (24 padded to 32: 2
+    on each of the first 12 ranks), the state's slice for C·Bᵀ (128 as
+    16 x 8) and d_inner's channels for the gated norm and the
+    out-projection's rows (1536 as 16 x 96).  Between the parts each
+    rank's slice is gathered whole, each reader's gradient a partial sum."""
 
     def __init__(self, p: Mamba, x, cfg: ModelConfig):
         self.p, self.cfg = p, cfg
         self.mesh = mesh = x.device_mesh
         names = mesh.mesh_dim_names
         self.mi = names.index("model") if "model" in names else None
-        ways = mesh.size(self.mi) if self.mi is not None else 1
-        rank = mesh.get_local_rank(self.mi) if self.mi is not None else 0
-        self.ways = ways
-        di, h, n, _ = ssm_dims(cfg)
-        size = -(-h // ways)                      # torch.chunk's split
-        self.lo = min(h, rank * size)
-        self.hi = min(h, self.lo + size)
-        # B and C projected in slices of the state, gathered whole
-        self.n_part = n // ways if n % ways == 0 else n
-        self.n_lo = rank * self.n_part if n % ways == 0 else 0
+        self.ways = mesh.size(self.mi) if self.mi is not None else 1
+        x = reduce_pending(x)
+        last, xp = x.ndim - 1, list(x.placements)
+        if self.mi is not None and xp[self.mi].is_shard(last):
+            # features sharded on "model" (an adapter's output in the
+            # residual) move to an idle dim of that size, as in ``project``
+            xp[self.mi] = Replicate()
+            for j, q in enumerate(xp):
+                if q.is_replicate() and j != self.mi and mesh.size(j) == self.ways:
+                    xp[j] = Shard(last)
+                    break
+            x = x.redistribute(mesh, xp)
+        # dims that shard the features (an idle dim of a decode batch of
+        # one, where GSPMD scatters the residual): the in-projection splits
+        # its contraction there, and over the idle pods too (``kdims``), and
+        # the out-projection its columns there
+        self.fdims = [i for i, q in enumerate(xp) if q.is_shard(last)]
+        self.kdims = [i for i, (q, name) in enumerate(zip(xp, names))
+                      if i in self.fdims or (self.fdims and name == "pod" and q.is_replicate())]
         # the batch's placements; the model dim and any other replicated
-        self.keep = [p if p.is_shard(0) and i != self.mi else Replicate()
-                     for i, p in enumerate(x.placements)]
-        # the gradient of what every model rank reads whole: a partial sum
-        self.part = [Partial() if i == self.mi else k for i, k in enumerate(self.keep)]
-        self.x = reduce_pending(x)
+        self.keep = [q if q.is_shard(0) and i != self.mi else Replicate()
+                     for i, q in enumerate(xp)]
+        # the gradient of what every model rank reads whole, and of what
+        # the feature dims' ranks compute alike: a partial sum
+        self.part = [Partial() if i == self.mi or i in self.fdims else k
+                     for i, k in enumerate(self.keep)]
+        self.x = x
+
+    def share(self, total: int, dims=None) -> slice:
+        """This rank's slice of ``total`` in ``torch.chunk``'s split (the
+        split of a ``Shard`` placement) over ``dims``, in their order
+        (default: the model dim)."""
+        lo, size = 0, total
+        for i in ([self.mi] if dims is None else dims):
+            if i is None:
+                continue
+            step = -(-size // self.mesh.size(i))
+            start = min(size, self.mesh.get_local_rank(i) * step)
+            lo, size = lo + start, min(step, size - start)
+        return slice(lo, lo + size)
 
     def _at(self, i: int, placement) -> list:
         return [placement if j == i else k for j, k in enumerate(self.keep)]
@@ -256,12 +294,13 @@ class _HeadShards:
             return t
         return t.redistribute(self.mesh, self.keep).to_local(grad_placements=grad)
 
-    def weight(self, t):
+    def weight(self, t, split=()):
         """A parameter gathered whole; its gradient a partial sum over the
-        model dim (each rank reads its heads' slices) and the batch dims."""
+        model dim (each rank reads its slices), the feature dims, the
+        ``split`` dims (whose ranks read slices of it) and the batch dims."""
         whole = [Replicate()] * self.mesh.ndim
-        grad = [Partial() if i == self.mi or k.is_shard() else Replicate()
-                for i, k in enumerate(self.keep)]
+        grad = [Partial() if i == self.mi or i in self.fdims or i in split or k.is_shard()
+                else Replicate() for i, k in enumerate(self.keep)]
         return t.redistribute(self.mesh, whole).to_local(grad_placements=grad)
 
     def dtensor(self, local, placements, shape):
@@ -269,17 +308,19 @@ class _HeadShards:
                                   shape=torch.Size(shape),
                                   stride=torch.empty(shape, device="meta").stride())
 
-    def gather(self, local, dim: int, shape):
-        """The rank's slice along ``dim`` (``torch.chunk``'s, of ``shape``),
-        gathered whole over the model dim; its gradient partial."""
-        if self.mi is None:
+    def gather(self, local, dim: int, shape, pending=()):
+        """The rank's slice along ``dim`` (``share``'s, of ``shape``),
+        gathered whole over the model dim, and its partial sums over the
+        ``pending`` dims reduced; its gradient partial."""
+        if self.mi is None and not pending:
             return local
-        t = self.dtensor(local, self._at(self.mi, Shard(dim)), shape)
+        t = self.dtensor(local, [Shard(dim) if i == self.mi else Partial() if i in pending
+                                 else k for i, k in enumerate(self.keep)], shape)
         return t.redistribute(self.mesh, self.keep).to_local(grad_placements=self.part)
 
     def reduce(self, local, shape):
         """Partial sums over the model dim, all-reduced; each rank reads the
-        sum for its own heads, so its gradient is a partial sum too."""
+        sum for its own slice, so its gradient is a partial sum too."""
         if self.mi is None:
             return local
         t = self.dtensor(local, self._at(self.mi, Partial()), shape)
@@ -287,34 +328,28 @@ class _HeadShards:
 
     def apply(self, ssm_state, conv_state, pad_mask, last_valid):
         p, cfg = self.p, self.cfg
-        di, h, n, _ = ssm_dims(cfg)
+        di, h, n, conv_dim = ssm_dims(cfg)
         hd, w = cfg.ssm_head_dim, cfg.ssm_conv_width
-        lo, hi, nl, nb = self.lo, self.hi, self.n_lo, self.n_part
-        x = self.local(self.x, grad=self.part)
+        feats = [Shard(2) if i in self.kdims else k for i, k in enumerate(self.part)]
+        x = self.x.redistribute(self.mesh, [Shard(2) if i in self.kdims else k
+                                            for i, k in enumerate(self.keep)]
+                                ).to_local(grad_placements=feats)
         bsz_l, s, _ = x.shape
         bsz = self.x.shape[0]
-        hl = hi - lo
-        heads = slice(lo * hd, hi * hd)
+        hs = self.share(h)
+        heads = slice(hs.start * hd, hs.stop * hd)
+        hl = hs.stop - hs.start
 
-        w_in = self.weight(p.in_proj)
-        cols = torch.cat([w_in[:, heads], w_in[:, di:][:, heads],
-                          w_in[:, 2 * di + nl:2 * di + nl + nb],
-                          w_in[:, 2 * di + n + nl:2 * di + n + nl + nb],
-                          w_in[:, 2 * di + 2 * n + lo:2 * di + 2 * n + hi]], dim=1)
-        z, xin, b_part, c_part, dt_raw = torch.split(
-            x @ cols, [hl * hd, hl * hd, nb, nb, hl], dim=-1)
-        if nb == n:
-            b, c = b_part, c_part
-        else:
-            b = self.gather(b_part, 2, (bsz, s, n))
-            c = self.gather(c_part, 2, (bsz, s, n))
+        cols, rows = self.share(2 * di + 2 * n + h), self.share(cfg.d_model, self.kdims)
+        proj = self.gather(x @ self.weight(p.in_proj, self.kdims)[rows, cols], 2,
+                           (bsz, s, 2 * di + 2 * n + h), pending=self.kdims)
+        z, xin, _, _, dt_raw = _split_proj(proj, cfg)
+        xbc = torch.cat([xin, proj[..., 2 * di:2 * di + 2 * n]], dim=-1)  # [x, B, C]
 
-        conv_w, conv_b = self.weight(p.conv_w), self.weight(p.conv_b)
-        cw = torch.cat([conv_w[:, heads], conv_w[:, di:]], dim=1)
-        cb = torch.cat([conv_b[heads], conv_b[di:]])
-        xbc = torch.cat([xin, b, c], dim=-1)      # (B, S, hl·P + 2N)
+        ch = self.share(conv_dim)
+        cw, cb = self.weight(p.conv_w)[:, ch], self.weight(p.conv_b)[ch]
         if conv_state is None:
-            conv_out = _causal_conv(xbc, cw, cb, w)
+            conv_out = _causal_conv(xbc[..., ch], cw, cb, w)
             if last_valid is not None:
                 padded = F.pad(xbc, (0, 0, w - 1, 0))
                 start = torch.clamp(self.local(last_valid).long(), 0, s)
@@ -324,19 +359,19 @@ class _HeadShards:
                 window = xbc[:, -(w - 1):, :] if s >= w - 1 else F.pad(
                     xbc, (0, 0, w - 1 - s, 0))
         else:
-            cs = self.local(conv_state)
-            window = torch.cat([torch.cat([cs[..., heads], cs[..., di:]], dim=-1), xbc], dim=1)
-            conv_out = (torch.einsum("bwc,wc->bc", window, cw) + cb)[:, None, :]
+            window = torch.cat([self.local(conv_state), xbc], dim=1)
+            conv_out = (torch.einsum("bwc,wc->bc", window[..., ch], cw) + cb)[:, None, :]
             window = window[:, 1:, :]
         conv_out = F.silu(conv_out.to(F32)).to(x.dtype)
-        xs, bs, cs = torch.split(conv_out, [hl * hd, n, n], dim=-1)
+        conv_out = self.gather(conv_out, 2, (bsz, s, conv_dim))
+        xs, bs, cs = torch.split(conv_out, [di, n, n], dim=-1)
 
-        dt = torch.logaddexp(dt_raw.to(F32) + self.weight(p.dt_bias)[lo:hi],
+        dt = torch.logaddexp(dt_raw[..., hs].to(F32) + self.weight(p.dt_bias)[hs],
                              torch.zeros((), dtype=F32, device=x.device))
         if pad_mask is not None and ssm_state is None:
             dt = dt * self.local(pad_mask)[..., None].to(dt.dtype)
-        a = -torch.exp(self.weight(p.A_log)[lo:hi])
-        xh = xs.reshape(bsz_l, s, hl, hd)
+        a = -torch.exp(self.weight(p.A_log)[hs])
+        xh = xs[..., heads].reshape(bsz_l, s, hl, hd)
 
         if ssm_state is None:
             chunk = min(cfg.ssm_chunk, s)
@@ -344,42 +379,38 @@ class _HeadShards:
                 chunk //= 2
             chunk = max(chunk, 1)
             scores = None
-            if nb != n:
-                # C·Bᵀ over this rank's slice of the state, all-reduced: the
-                # conv is per channel, so the slices' conv is conv_out's
-                sl = torch.cat([torch.arange(di + nl, di + nl + nb),
-                                torch.arange(di + n + nl, di + n + nl + nb)]).to(x.device)
-                bc_part = F.silu(_causal_conv(torch.cat([b_part, c_part], dim=-1),
-                                              conv_w[:, sl], conv_b[sl], w).to(F32))
-                b_conv, c_conv = bc_part.to(x.dtype).to(F32).split([nb, nb], dim=-1)
-                nc = s // chunk
-                part = torch.einsum("bcin,bcjn->bcij", c_conv.reshape(bsz_l, nc, chunk, nb),
-                                    b_conv.reshape(bsz_l, nc, chunk, nb))
+            if self.ways > 1 and n % self.ways == 0:
+                # C·Bᵀ over this rank's slice of the state, all-reduced
+                st, nc = self.share(n), s // chunk
+                part = torch.einsum("bcin,bcjn->bcij",
+                                    cs[..., st].to(F32).reshape(bsz_l, nc, chunk, -1),
+                                    bs[..., st].to(F32).reshape(bsz_l, nc, chunk, -1))
                 scores = self.reduce(part, (bsz, nc, chunk, chunk))
             y, state = ssd_chunked(xh, dt, a, bs, cs, chunk, scores=scores)
         else:
-            state_in = self.local(ssm_state)[:, lo:hi]
+            state_in = self.local(ssm_state)[:, hs]
             state, yt = ssd_decode_step(state_in, xh[:, 0], dt[:, 0], a, bs[:, 0], cs[:, 0])
             y = yt[:, None]
-        y = y + self.weight(p.D)[lo:hi][None, None, :, None].to(y.dtype) * xh
-        y = y.reshape(bsz_l, s, hl * hd)
-        g = (y * F.silu(z.to(F32)).to(y.dtype)).to(F32)
+        y = y + self.weight(p.D)[hs][None, None, :, None].to(y.dtype) * xh
+        # the heads gathered, then the gated norm and the out-projection's
+        # rows on this rank's share of d_inner's channels
+        y = self.gather(y, 2, (bsz, s, h, hd)).reshape(bsz_l, s, di)
+        dc = self.share(di)
+        g = (y[..., dc] * F.silu(z[..., dc].to(F32)).to(y.dtype)).to(F32)
         if self.ways == 1:
             var = g.square().mean(dim=-1, keepdim=True)
         else:  # the mean over the whole d_inner: each rank's sum, all-reduced
             var = self.reduce(g.square().sum(dim=-1, keepdim=True), (bsz, s, 1)) / di
-        scale = self.weight(p.norm.scale)[heads]
+        scale = self.weight(p.norm.scale)[dc]
         yn = (g * torch.rsqrt(var + cfg.norm_eps) * scale.to(F32)).to(y.dtype)
-        out = yn @ self.weight(p.out_proj)[heads]
-        out = reduce_pending(self.dtensor(out, self._at(self.mi, Partial()) if self.mi is not None
-                                          else self.keep, (bsz, s, out.shape[-1])))
+        out = yn @ self.weight(p.out_proj)[dc, self.share(cfg.d_model, self.fdims)]
+        out = reduce_pending(self.dtensor(
+            out, [Partial() if i == self.mi else Shard(2) if i in self.fdims else k
+                  for i, k in enumerate(self.keep)], (bsz, s, cfg.d_model)))
         new_state = self.dtensor(state, self._at(self.mi, Shard(1)) if self.mi is not None
                                  else self.keep, (bsz, h, hd, n))
         new_state = new_state.redistribute(self.mesh, self.keep)
-        new_conv = torch.cat([self.gather(window[..., :hl * hd].reshape(bsz_l, w - 1, hl, hd),
-                                          2, (bsz, w - 1, h, hd)).reshape(bsz_l, w - 1, di),
-                              window[..., hl * hd:]], dim=-1)
-        new_conv = self.dtensor(new_conv, self.keep, (bsz, w - 1, new_conv.shape[-1]))
+        new_conv = self.dtensor(window, self.keep, (bsz, w - 1, conv_dim))
         return out, new_state, new_conv
 
 

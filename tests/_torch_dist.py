@@ -124,3 +124,32 @@ def prefill_rank(rank, arch, over, params_np, batch_np, shape):
     with torch.no_grad(), implicit_replication():
         logits, _ = tapi.apply(model, batch, cfg)
     return logits.full_tensor().numpy()
+
+
+def decode_rank(rank, arch, over, params_np, tokens_np, cache_np, cache_len, slot_np, shape):
+    """One decode step (``api.decode_step``) of ``arch`` from the given
+    reference weights and cache, its params sharded by ``rules_for`` for a
+    decode on a ``shape`` mesh, the cache by the dry-run's cache specs and
+    the tokens by ``batch_specs``; the logits and the written cache whole."""
+    mesh = host_mesh(shape)
+    cfg = treg.get_config(arch).reduced(**over)
+    model = tapi.from_jax_params(params_np, cfg, device="cpu")
+    rules = dryrun.rules_for(cfg, "decode", mesh)
+    pspecs, _ = sharding.legalize(sharding.param_specs(model, rules),
+                                  dict(model.named_parameters()), mesh)
+    sharding.distribute_state({"params": model, "opt": {}}, mesh,
+                              {"params": pspecs, "opt": {}})
+    cache = sharding.tree_unflatten({k: torch.from_numpy(v) for k, v in
+                                     sharding.tree_paths(cache_np).items()})
+    cspecs, _ = sharding.legalize(dryrun._decode_cache_specs(cache, rules, mesh),
+                                  sharding.tree_paths(cache), mesh)
+    cache = sharding.distribute_tree(cache, mesh, cspecs)
+    inputs = {"tokens": torch.from_numpy(tokens_np), "slot_ids": torch.from_numpy(slot_np)}
+    ispecs, _ = sharding.legalize(sharding.batch_specs(inputs, rules),
+                                  sharding.tree_paths(inputs), mesh)
+    inputs = sharding.distribute_tree(inputs, mesh, ispecs)
+    with torch.no_grad(), implicit_replication():
+        logits, cache = tapi.decode_step(model, inputs["tokens"], cache, cache_len, cfg,
+                                         inputs["slot_ids"])
+    whole = {k: v.full_tensor().float().numpy() for k, v in sharding.tree_paths(cache).items()}
+    return logits.full_tensor().numpy(), whole

@@ -6,8 +6,14 @@ port reads (``src/repro_torch/launch/dryrun_reference.json``): for every
 ``jnp.einsum`` specs ``bghqd,bgkd->bghqk`` and ``bghqk,bgkd->bghqd`` in
 ``repro.nn.modules`` and ``repro.models.encdec``) and every einsum of
 ``repro.nn.ssd`` swapped in memory for dot-free stand-ins of their shapes
-(the port's ``dryrun.no_attention`` does the same to its own); or the
-reason it skipped the cell, or the error it raised.  The port and ``chip_smoke.py`` only read the table (the
+(the port's ``dryrun.no_attention`` does the same to its own); for a
+training cell under FSDP also ``attention_repeat``, its attention's dot
+FLOPs per rank (the count less ``rest_dot_flops``) over those of the same
+step without FSDP (the threshold raised past the model): how many times
+the reference repeats its attention over the FSDP ranks, where it runs
+the whole batch on each (16 where it repeats every product, less where
+its HLO splits some of them); or the reason it skipped the cell, or the
+error it raised.  The port and ``chip_smoke.py`` only read the table (the
 card's machine has no JAX); ``tests/test_torch_dryrun_table.py``
 regenerates one cell and holds it equal to its entry.
 
@@ -16,6 +22,7 @@ Each arch runs in a subprocess of its own with 512 host devices
 
     PYTHONPATH=src python tests/dryrun_reference.py --jobs 4
     PYTHONPATH=src python tests/dryrun_reference.py --arch mamba2-130m --mesh single
+    PYTHONPATH=src python tests/dryrun_reference.py --shape train_4k --jobs 4
 """
 
 from __future__ import annotations
@@ -81,27 +88,44 @@ _SCRIPT = textwrap.dedent("""
                 return (a.sum(-1)[..., None] * b.sum(2)[:, :, None, None, :]).astype(jnp.float32)
             return jnp.einsum(spec, a, b, **kw)
 
+    def counts(shape, mesh):
+        # the cell's result, and its dot FLOPs with attention dot-free
+        res = dryrun.run_cell({arch!r}, shape, mesh == "multi", overrides={overrides!r})
+        if res["status"] != "ok":
+            return res, None
+        modules.jnp = encdec.jnp = NoAttention()
+        ssd.jnp = NoSSD()
+        try:
+            rest = dryrun.run_cell({arch!r}, shape, mesh == "multi", overrides={overrides!r})
+        finally:
+            modules.jnp = encdec.jnp = ssd.jnp = jnp
+        return res, rest["analysis"]["dot_flops"]
+
     out = {{}}
     for shape, mesh in {cells!r}:
         key = "|".join(({arch!r}, shape, mesh))
         try:
-            res = dryrun.run_cell({arch!r}, shape, mesh == "multi", overrides={overrides!r})
-            if res["status"] == "ok":
-                modules.jnp = encdec.jnp = NoAttention()
-                ssd.jnp = NoSSD()
+            res, rest = counts(shape, mesh)
+            repeat = None
+            if res["status"] == "ok" and res["kind"] == "train" and res["fsdp"]:
+                # attention per rank over that of the same step without FSDP
+                threshold, dryrun.FSDP_TRAIN_THRESHOLD = dryrun.FSDP_TRAIN_THRESHOLD, float("inf")
                 try:
-                    rest = dryrun.run_cell({arch!r}, shape, mesh == "multi",
-                                           overrides={overrides!r})
+                    whole, whole_rest = counts(shape, mesh)
                 finally:
-                    modules.jnp = encdec.jnp = ssd.jnp = jnp
+                    dryrun.FSDP_TRAIN_THRESHOLD = threshold
+                repeat = ((res["analysis"]["dot_flops"] - rest)
+                          / (whole["analysis"]["dot_flops"] - whole_rest))
         except Exception as e:
             out[key] = {{"status": "error", "error": f"{{type(e).__name__}}: {{e}}"}}
             continue
         if res["status"] == "ok":
             out[key] = {{"status": "ok",
                         "dot_flops": res["analysis"]["dot_flops"],
-                        "rest_dot_flops": rest["analysis"]["dot_flops"],
+                        "rest_dot_flops": rest,
                         "argument_bytes": res["memory"]["argument_bytes"]}}
+            if repeat is not None:
+                out[key]["attention_repeat"] = repeat
         else:
             out[key] = {{"status": res["status"], "reason": res.get("reason")}}
     json.dump(out, sys.stdout)
@@ -129,6 +153,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", action="append", choices=ARCHS,
                     help="only these archs (repeatable); their entries are "
                          "replaced, the others kept")
+    ap.add_argument("--shape", action="append", choices=list(SHAPES),
+                    help="only these shapes (repeatable); their entries are replaced")
     ap.add_argument("--mesh", choices=("single", "multi", "both"), default="both")
     ap.add_argument("--jobs", type=int, default=2)
     ap.add_argument("--table", default=TABLE)
@@ -139,7 +165,7 @@ def main(argv=None) -> int:
         with open(args.table) as f:
             table = json.load(f)
     with ThreadPoolExecutor(args.jobs) as pool:
-        for entries in pool.map(lambda a: reference_entries(a, meshes=meshes),
+        for entries in pool.map(lambda a: reference_entries(a, args.shape, meshes),
                                 args.arch or ARCHS):
             table.update(entries)
             print(json.dumps(entries), flush=True)

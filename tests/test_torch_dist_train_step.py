@@ -43,6 +43,9 @@ def test_head_sharded_step_matches_reference_single_device(tmp_path):
 @pytest.mark.parametrize("arch,shared,mesh", [
     # 4 heads of 32 over "model" (2): two each, B and C projected in halves
     ("mamba2-130m", {}, (2, 2)),
+    # 3 heads of 32 over "model" (2): d_inner's 96 channels 48 each, so the
+    # norm and the out-projection cut head 1; the heads 2 and 1
+    ("mamba2-130m", {"d_model": 48}, (2, 2)),
     # 6 q heads in 2 groups over "model" (4): no group or head split, so
     # the attention tiles "model" as GSPMD does, the groups 2 ways and the
     # 16 tokens 2 ways
@@ -54,6 +57,7 @@ def test_repaired_layouts_match_reference_and_unsharded(arch, shared, mesh, tmp_
 
 @pytest.mark.parametrize("arch,shared,mesh", [
     ("mamba2-130m", {}, (2, 2)),
+    ("mamba2-130m", {"d_model": 48}, (2, 2)),
     ("glm4-9b", {"n_heads": 6, "n_kv_heads": 2}, (1, 4)),
 ])
 def test_sharded_prefill_logits_match_unsharded(arch, shared, mesh, tmp_path):
