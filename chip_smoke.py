@@ -122,7 +122,7 @@ Phases, in order; any failure raises and exits non-zero:
    queue, fed one 8192-packet burst per tick): device time by operator and
    the device's idle share, and for the tick the host time of the arrival
    edge apart from the tick's and the packets served per tick; splits that
-   sequential tick's host time line by line (``split_tick``); and profiles
+   sequential tick's host time by the runtime's own spans; and profiles
    one 8-tick megastep window beside 8 sequential ticks at the same
    traffic: device time by operator, idle share, device-to-host copies per
    window (one, the drain's, or it fails), the host time of staging against
@@ -430,76 +430,6 @@ def profile_step(step, iters: int = 20, top: int = 8) -> dict:
              "device_us_per_step": e.self_device_time_total / iters}
             for e in acts[:top]],
     }
-
-
-SPLIT_LINES = ("dispatch", "tick boundary", "pop", "pad and stack", "to_device",
-               "packet_step dispatch", "event wait", "result copy", "record_tick",
-               "recorder extends")
-
-
-def split_tick(rt, burst, iters: int = 10) -> dict:
-    """The sequential data-plane tick's host time line by line (ms per
-    tick, host clock): ``rt.dispatch(burst)``, then the body of
-    ``DataplaneRuntime.tick`` with the loop fan-out and of its ``_retire``,
-    each line timed as the runtime runs it; and the packets served per
-    tick, after as many untimed ticks to reach the steady backlog.  ``rt``
-    is a sequential, recording runtime on the card."""
-    import numpy as np
-    import torch
-    from repro_torch.core import packet as pkt, pipeline
-    from repro_torch.dataplane.workloads.phases import SEQ_WORD
-
-    for _ in range(iters):
-        rt.dispatch(burst)
-        rt.tick()
-    acc = dict.fromkeys(SPLIT_LINES, 0.0)
-    served = 0
-    for _ in range(iters):
-        last = [time.perf_counter()]
-
-        def lap(line):
-            now = time.perf_counter()
-            acc[line] += now - last[0]
-            last[0] = now
-
-        rt.dispatch(burst)
-        lap("dispatch")
-        rt._tick_boundary()
-        rt._tick_count += 1
-        rt.telemetry.runtime_ticks += 1
-        lap("tick boundary")
-        popped = [ring.pop(rt.batch) for ring in rt.rings]
-        counts = [rows.shape[0] for rows, _ in popped]
-        live = [q for q in range(rt.num_queues) if counts[q]]
-        lap("pop")
-        stacked = np.stack([rt._pad(popped[q][0]) for q in live])
-        lap("pad and stack")
-        x_all = pkt.to_device(stacked, rt.device)
-        lap("to_device")
-        results = [rt._packed(pipeline.packet_step(rt.bank, x, **rt._step_kwargs()))
-                   for x in x_all]
-        lap("packet_step dispatch")
-        done = torch.cuda.Event()
-        done.record()
-        done.synchronize()
-        lap("event wait")
-        host = [res[:, :counts[q]].cpu().numpy() for q, res in zip(live, results)]
-        lap("result copy")
-        now = time.perf_counter()
-        for q, h in zip(live, host):
-            rt.telemetry.record_tick(q, h[0], h[1].astype(bool), h[2],
-                                     latency_us=(now - popped[q][1]) * 1e6, tick_s=0.0)
-            rt.rings[q].mark_completed(counts[q])
-        lap("record_tick")
-        for q, h in zip(live, host):
-            rt.completed_seq[q].extend(int(s) for s in popped[q][0][:, SEQ_WORD])
-            rt.completed_verdicts[q].extend(bool(v) for v in h[1].astype(bool))
-            rt.completed_slots[q].extend(int(s) for s in h[0])
-        lap("recorder extends")
-        served += sum(counts)
-    out = {f"{line}_ms": t / iters * 1e3 for line, t in acc.items()}
-    out["packets_served_per_tick"] = served / iters
-    return out
 
 
 MESH_HOSTS = (2, 4)                # hosts of the mesh sweep, DP_QUEUES each
@@ -3001,8 +2931,18 @@ def main() -> int:
     tick_profile["packets_served_per_tick"] = served / 10
     print(json.dumps({"dataplane_tick_profile": tick_profile}))
     end_to_end["dataplane_tick_device_idle_share"] = tick_profile["device_idle_share"]
-    print(json.dumps({"dataplane_tick_split": split_tick(
-        runtime(True, audit=False, record=True), crowd_burst)}), flush=True)
+    # The same tick split by the program's own spans (``rt.spans``) over
+    # ten recorded ticks, after ten to reach the steady backlog.
+    rt = runtime(True, audit=False, record=True)
+    for _ in range(10):
+        rt.dispatch(crowd_burst)
+        rt.tick()
+    rt.spans.start()
+    for _ in range(10):
+        rt.dispatch(crowd_burst)
+        rt.tick()
+    rt.spans.stop()
+    print(json.dumps({"dataplane_tick_split": rt.spans.summary()}), flush=True)
 
     # One megastep window of WINDOW_TICKS ticks beside as many sequential
     # ticks, on the same traffic; each step of the profile is one window.

@@ -90,6 +90,7 @@ class _Staged:
     qids: np.ndarray         # (nb,) int32 queue id per burst row
     pops: list               # [(rows, ts)] per queue, host-mirror copies
     counts: list             # rows popped per queue
+    t_pop: float             # host clock at the pop
 
 
 def _run_window(rings, bankx, xs, cur, *, capacity: int, width: int,
@@ -207,6 +208,7 @@ class MegastepEngine:
         drain loops do not pad the window."""
         rt = self.rt
         popped = [ring.pop(rt.batch) for ring in rt.rings]
+        t_pop = time.perf_counter()
         counts = [rows.shape[0] for rows, _ in popped]
         total = sum(counts)
         if total == 0 and not self._pend_rows:
@@ -214,7 +216,8 @@ class MegastepEngine:
         self._open_window()
         rows, qids = self._take_pending()
         self._steps.append(_Staged(tick=rt._tick_count, rows=rows,
-                                   qids=qids, pops=popped, counts=counts))
+                                   qids=qids, pops=popped, counts=counts,
+                                   t_pop=t_pop))
         if len(self._steps) >= self.window:
             self.flush()
         return total
@@ -445,11 +448,14 @@ class MegastepEngine:
                 continue
             lat = np.concatenate(
                 [st.pops[q][1] for st in steps if st.counts[q]])
+            # the window compacts its queues: no queue batch is padded
             rt.telemetry.record_window(
                 q, ticks=int(served[q]), completed=int(completed[q]),
                 per_slot_total=per_slot[q], per_slot_malicious=per_slot_mal[q],
                 actions=acts_ctr[q], latency_us=(now - lat) * 1e6,
-                busy_s=span * int(completed[q]) / total)
+                busy_s=span * int(completed[q]) / total,
+                wait_s=sum(float(np.sum(st.t_pop - st.pops[q][1]))
+                           for st in steps if st.counts[q]))
             rt.rings[q].mark_completed(int(completed[q]))
         if rt.audit:
             rt.telemetry.wrong_verdict += wrong

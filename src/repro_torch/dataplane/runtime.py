@@ -49,6 +49,13 @@ fused launch, drained once.  It needs the fused strategy, the ``cuda`` or
 ``ref`` backend and no fault injector; every other configuration keeps the
 sequential loop, with the same verdicts and telemetry totals.
 
+``spans`` (`repro_torch.obs.spans.SpanRecorder`, off until
+``spans.start()``) times the sequential path from inside: ``dp.dispatch``
+(``.hash``, ``.push``), ``dp.boundary``, ``dp.tick`` (``.pop``, ``.stage``,
+``.h2d``, ``.launch``) and ``dp.retire`` (``.wait``, ``.d2h``, ``.tap``,
+``.account``), each also a ``torch.profiler`` range while on.  The
+megastep window and the mesh facade open none.
+
 Host taps (they must treat their arguments as read-only and stay cheap):
 ``on_retire(queue, rows, slots, verdicts, actions, tick)`` for every
 retired queue batch, ``on_drop(queue, rows)`` for dispatch-edge tail drops.
@@ -80,6 +87,7 @@ from repro_torch.dataplane.workloads.phases import SEQ_WORD
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.obs.spans import SpanRecorder
 
 _LOOP_STRATEGIES = ("fused", "grouped", "grouped_staged")
 
@@ -166,7 +174,7 @@ class _InFlight:
         self.results = results    # {queue: (3, batch) int32 slot/verdict/action}
         self.bank = bank          # bank version captured at dispatch
         self.done = done          # CUDA event after the tick's work (or None)
-        self.t0 = t0
+        self.t0 = t0              # host clock at the pop
 
 
 class DataplaneRuntime:
@@ -238,6 +246,7 @@ class DataplaneRuntime:
         self.reta = rss.indirection_table(self.num_queues)
         self.rings = [PacketRing(ring_capacity) for _ in range(self.num_queues)]
         self.telemetry = Telemetry(self.num_queues, self.num_slots)
+        self.spans = SpanRecorder()
         self._record = record
         self.completed_seq = [[] for _ in range(self.num_queues)]
         self.completed_verdicts = [[] for _ in range(self.num_queues)]
@@ -515,7 +524,7 @@ class DataplaneRuntime:
         self.reta = reta
         self.telemetry.reta_updates += 1
 
-    def _apply_control(self) -> None:
+    def _apply_control(self) -> int:
         """Apply queued epochs at a fully quiescent boundary: in-flight
         ticks retire first, so each epoch's wrong-verdict snapshot has
         absorbed every pre-epoch tick, and no in-flight tick reads the
@@ -526,20 +535,24 @@ class DataplaneRuntime:
         mid-window at the matching step (the window's bank is pinned).  The
         window flushes early only when the epoch batch would overflow the
         bounded delta queue.  Each epoch's ``wrong_verdict_at_apply`` is
-        then the value as of the last flush."""
-        if self.control.has_pending:
-            if self._mega is not None:
-                self._mega.prepare_epochs(
-                    sum(len(r.commands) for r in self.control.pending))
-            else:
-                self.retire_all()
-            self.control.apply_pending(self._tick_count)
+        then the value as of the last flush.  Returns the number of epochs
+        applied."""
+        if not self.control.has_pending:
+            return 0
+        if self._mega is not None:
+            self._mega.prepare_epochs(
+                sum(len(r.commands) for r in self.control.pending))
+        else:
+            self.retire_all()
+        return len(self.control.apply_pending(self._tick_count))
 
-    def _tick_boundary(self) -> None:
+    def _tick_boundary(self) -> int:
         """Apply queued control epochs, then let the routing policy react
-        (its proposal lands as an epoch at the *next* boundary)."""
-        self._apply_control()
+        (its proposal lands as an epoch at the *next* boundary).  Returns
+        the number of epochs applied."""
+        applied = self._apply_control()
         consult_policy(self)
+        return applied
 
     def flush_control(self) -> None:
         """Force-apply pending epochs now."""
@@ -587,45 +600,55 @@ class DataplaneRuntime:
         the mesh resolves (host, queue) from ONE mesh-level hash and hands
         each shard its local ids, so the burst is never hashed twice.  The
         caller then owns the per-bucket load count."""
-        self._apply_control()
-        if self._t_start is None:
-            self._t_start = time.perf_counter()
-        if now is None:
-            now = time.perf_counter()
-        packets_np = np.asarray(packets_np)
-        if queues is None:
-            h = rss.toeplitz_hash(rss.flow_words_of(packets_np), self.rss_key)
-            bucket = rss.bucket_index(h, len(self.reta)).astype(np.int64)
-            self.bucket_load += np.bincount(bucket, minlength=len(self.reta))
-            q = self.reta[bucket]
-        else:
-            q = np.asarray(queues, np.int64)
-            if q.size and not (0 <= q.min() and q.max() < self.num_queues):
-                # a global id handed to a shard would otherwise match no
-                # ring and vanish without tripping the conservation audit
-                raise ValueError(
-                    f"precomputed queue ids out of range for "
-                    f"{self.num_queues} queues")
-        self.telemetry.touch(now)
-        per_queue = []
-        for i, ring in enumerate(self.rings):
-            rows = packets_np[q == i]
-            admitted = ring.push(rows, now)
-            if self._record and admitted < rows.shape[0]:
-                self.dropped_seq.extend(
-                    int(s) for s in rows[admitted:, SEQ_WORD])
-            if self.on_drop is not None and admitted < rows.shape[0]:
-                self.on_drop(i, rows[admitted:])
-            self.telemetry.record_drops(i, int(rows.shape[0]) - admitted)
-            per_queue.append({"offered": int(rows.shape[0]),
-                              "admitted": admitted,
-                              "dropped": int(rows.shape[0]) - admitted})
-        if self._mega is not None:
-            # deferred mode: the host rings above stay authoritative; the
-            # device replays the identical admission at flush
-            self._mega.stage_burst(packets_np, q)
-        return {"per_queue": per_queue,
-                "dropped": sum(p["dropped"] for p in per_queue)}
+        sp = self.spans
+        with sp.span("dp.dispatch") as top:
+            with sp.span("dp.boundary") as b:
+                b.count(epochs=self._apply_control())
+            if self._t_start is None:
+                self._t_start = time.perf_counter()
+            if now is None:
+                now = time.perf_counter()
+            packets_np = np.asarray(packets_np)
+            top.count(rows=packets_np.shape[0])
+            if queues is None:
+                with sp.span("dp.dispatch.hash"):
+                    h = rss.toeplitz_hash(rss.flow_words_of(packets_np),
+                                          self.rss_key)
+                    bucket = rss.bucket_index(h, len(self.reta)).astype(np.int64)
+                    self.bucket_load += np.bincount(bucket,
+                                                    minlength=len(self.reta))
+                    q = self.reta[bucket]
+            else:
+                q = np.asarray(queues, np.int64)
+                if q.size and not (0 <= q.min() and q.max() < self.num_queues):
+                    # a global id handed to a shard would otherwise match no
+                    # ring and vanish without tripping the conservation audit
+                    raise ValueError(
+                        f"precomputed queue ids out of range for "
+                        f"{self.num_queues} queues")
+            self.telemetry.touch(now)
+            per_queue = []
+            with sp.span("dp.dispatch.push") as push:
+                for i, ring in enumerate(self.rings):
+                    rows = packets_np[q == i]
+                    admitted = ring.push(rows, now)
+                    if self._record and admitted < rows.shape[0]:
+                        self.dropped_seq.extend(
+                            int(s) for s in rows[admitted:, SEQ_WORD])
+                    if self.on_drop is not None and admitted < rows.shape[0]:
+                        self.on_drop(i, rows[admitted:])
+                    self.telemetry.record_drops(i, int(rows.shape[0]) - admitted)
+                    per_queue.append({"offered": int(rows.shape[0]),
+                                      "admitted": admitted,
+                                      "dropped": int(rows.shape[0]) - admitted})
+                dropped = sum(p["dropped"] for p in per_queue)
+                push.count(admitted=packets_np.shape[0] - dropped,
+                           dropped=dropped)
+            if self._mega is not None:
+                # deferred mode: the host rings above stay authoritative; the
+                # device replays the identical admission at flush
+                self._mega.stage_burst(packets_np, q)
+        return {"per_queue": per_queue, "dropped": dropped}
 
     def _pad(self, rows: np.ndarray) -> np.ndarray:
         n = rows.shape[0]
@@ -648,87 +671,117 @@ class DataplaneRuntime:
             # nothing; pending epochs stay queued, rings keep backlog
             self._tick_count += 1
             return 0
-        self._tick_boundary()
-        self._tick_count += 1
-        self.telemetry.runtime_ticks += 1
-        if self._mega is not None:
-            # deferred mode: pop the host mirror now, serve on the device
-            # at flush (``pipeline_depth`` is superseded by the window)
-            return self._mega.stage_tick()
-        popped = [ring.pop(self.batch) for ring in self.rings]
-        counts = [rows.shape[0] for rows, _ in popped]
-        total = sum(counts)
-        if total == 0:
-            return 0
-        t0 = time.perf_counter()
-        live = [q for q in range(self.num_queues) if counts[q]]
-        if self.fanout == "loop":
-            x_all = pkt.to_device(
-                np.stack([self._pad(popped[q][0]) for q in live]), self.device)
-            x = dict(zip(live, x_all))
-            results = {q: self._packed(pipeline.packet_step(
-                self.bank, x[q], **self._step_kwargs())) for q in live}
-        else:
-            x_all = pkt.to_device(
-                np.stack([self._pad(rows) for rows, _ in popped]), self.device)
-            res = self._fanout_step(x_all)
-            b = self.batch
-            x = {q: x_all[q] for q in live}
-            results = {q: res[:, q * b:(q + 1) * b] for q in live}
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
-        self._inflight.append(_InFlight(
-            self._tick_count, popped, counts, x, results, self.bank, done, t0))
-        while len(self._inflight) > self.pipeline_depth - 1:
-            self._retire(self._inflight.popleft())
+        sp = self.spans
+        with sp.span("dp.tick"):
+            with sp.span("dp.boundary") as b:
+                b.count(epochs=self._tick_boundary())
+            self._tick_count += 1
+            self.telemetry.runtime_ticks += 1
+            if self._mega is not None:
+                # deferred mode: pop the host mirror now, serve on the device
+                # at flush (``pipeline_depth`` is superseded by the window)
+                return self._mega.stage_tick()
+            with sp.span("dp.tick.pop") as s:
+                popped = [ring.pop(self.batch) for ring in self.rings]
+                counts = [rows.shape[0] for rows, _ in popped]
+                total = sum(counts)
+                s.count(rows=total)
+            if total == 0:
+                return 0
+            t0 = time.perf_counter()
+            live = [q for q in range(self.num_queues) if counts[q]]
+            # the loop fan-out serves the live queues; the stacked fan-outs
+            # serve every queue's batch, an empty one all padding
+            staged = live if self.fanout == "loop" else range(self.num_queues)
+            with sp.span("dp.tick.stage") as s:
+                host = np.stack([self._pad(popped[q][0]) for q in staged])
+                s.count(rows=total, padded=host.shape[0] * self.batch - total)
+            with sp.span("dp.tick.h2d") as s:
+                x_all = pkt.to_device(host, self.device)
+                s.count(nbytes=host.nbytes)
+            with sp.span("dp.tick.launch") as s:
+                if self.fanout == "loop":
+                    x = dict(zip(live, x_all))
+                    results = {q: self._packed(pipeline.packet_step(
+                        self.bank, x[q], **self._step_kwargs())) for q in live}
+                else:
+                    res = self._fanout_step(x_all)
+                    b = self.batch
+                    x = {q: x_all[q] for q in live}
+                    results = {q: res[:, q * b:(q + 1) * b] for q in live}
+                done = None
+                if self.device.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record()
+                s.count(queues=len(live))
+            self._inflight.append(_InFlight(
+                self._tick_count, popped, counts, x, results, self.bank, done,
+                t0))
+            while len(self._inflight) > self.pipeline_depth - 1:
+                self._retire(self._inflight.popleft())
         return total
 
     def _retire(self, rec: _InFlight) -> None:
         """Pipeline stage 3: wait for the tick's device work, then fold
         results into telemetry / audit / record and retire ring rows."""
-        total = sum(rec.counts)
-        if rec.done is not None:
-            rec.done.synchronize()
-        now = time.perf_counter()
-        # busy time must not double-count overlapping in-flight windows:
-        # charge this tick only for the span since the previous retire
-        start = (rec.t0 if self._last_retire_s is None
-                 else max(rec.t0, self._last_retire_s))
-        tick_s = now - start
-        self._last_retire_s = now
-        for q, res in rec.results.items():
-            n = rec.counts[q]
-            rows, ts = rec.popped[q]
-            host = res[:, :n].cpu().numpy()
-            slots, verdicts, actions = host[0], host[1].astype(bool), host[2]
-            if self.on_retire is not None:
-                self.on_retire(q, rows, slots, verdicts, actions, rec.tick)
-            self.telemetry.record_tick(
-                q, slots, verdicts, actions,
-                latency_us=(now - ts) * 1e6,
-                tick_s=tick_s * n / total,
-            )
-            self.rings[q].mark_completed(n)
-            if self.audit:
-                # audit against the bank version this tick was dispatched
-                # with: a later epoch must not invalidate earlier work
-                exact = self._packed(pipeline.packet_step(
-                    rec.bank, rec.x[q], num_slots=self.num_slots,
-                    strategy="take", backend=self.backend))[:, :n].cpu().numpy()
-                bad = (exact[1].astype(bool) != verdicts).sum()
-                bad += (exact[0] != slots).sum()
-                self.telemetry.wrong_verdict += int(bad)
-            if self._record:
-                self.completed_seq[q].extend(int(s) for s in rows[:, SEQ_WORD])
-                self.completed_verdicts[q].extend(bool(v) for v in verdicts)
-                self.completed_slots[q].extend(int(s) for s in slots)
-        self.telemetry.touch(now)
-        if self.telemetry.has_sink:
-            self.telemetry.emit_delta(
-                tick=rec.tick, now=now,
-                depths=[len(r) for r in self.rings])
+        sp = self.spans
+        with sp.span("dp.retire") as top:
+            total = sum(rec.counts)
+            top.count(rows=total)
+            with sp.span("dp.retire.wait"):
+                if rec.done is not None:
+                    rec.done.synchronize()
+            now = time.perf_counter()
+            # busy time must not double-count overlapping in-flight windows:
+            # charge this tick only for the span since the previous retire
+            start = (rec.t0 if self._last_retire_s is None
+                     else max(rec.t0, self._last_retire_s))
+            tick_s = now - start
+            self._last_retire_s = now
+            for q, res in rec.results.items():
+                n = rec.counts[q]
+                rows, ts = rec.popped[q]
+                with sp.span("dp.retire.d2h"):
+                    host = res[:, :n].cpu().numpy()
+                slots, verdicts, actions = host[0], host[1].astype(bool), host[2]
+                if self.on_retire is not None:
+                    with sp.span("dp.retire.tap"):
+                        self.on_retire(q, rows, slots, verdicts, actions, rec.tick)
+                with sp.span("dp.retire.account"):
+                    self.telemetry.record_tick(
+                        q, slots, verdicts, actions,
+                        latency_us=(now - ts) * 1e6,
+                        tick_s=tick_s * n / total,
+                        wait_s=float(np.sum(rec.t0 - ts)),
+                        padded=self.batch - n,
+                    )
+                    self.rings[q].mark_completed(n)
+                    if self.audit:
+                        # audit against the bank version this tick was
+                        # dispatched with: a later epoch must not invalidate
+                        # earlier work
+                        exact = self._packed(pipeline.packet_step(
+                            rec.bank, rec.x[q], num_slots=self.num_slots,
+                            strategy="take", backend=self.backend))[:, :n].cpu().numpy()
+                        bad = (exact[1].astype(bool) != verdicts).sum()
+                        bad += (exact[0] != slots).sum()
+                        self.telemetry.wrong_verdict += int(bad)
+                    if self._record:
+                        self.completed_seq[q].extend(
+                            int(s) for s in rows[:, SEQ_WORD])
+                        self.completed_verdicts[q].extend(bool(v) for v in verdicts)
+                        self.completed_slots[q].extend(int(s) for s in slots)
+            if self.fanout != "loop":
+                # an empty queue's batch in a stacked fan-out: padding alone
+                for q, n in enumerate(rec.counts):
+                    if not n:
+                        self.telemetry.queues[q].padded += self.batch
+            self.telemetry.touch(now)
+            if self.telemetry.has_sink:
+                with sp.span("dp.retire.account"):
+                    self.telemetry.emit_delta(
+                        tick=rec.tick, now=now,
+                        depths=[len(r) for r in self.rings])
 
     def retire_all(self) -> None:
         """Flush the pipeline: retire every in-flight tick (oldest first).

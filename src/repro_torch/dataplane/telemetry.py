@@ -4,8 +4,11 @@
 Counters mirror what a production data plane exports per hardware queue
 (think ethtool -S / XDP stats): packets completed, drops at the ring edge,
 per-slot verdict counts (how much traffic each resident model served and
-how much of it was judged malicious), Pi action counts, and a log2 latency
-histogram measured enqueue -> retire.  ``snapshot()`` freezes everything
+how much of it was judged malicious), Pi action counts, a log2 latency
+histogram measured enqueue -> retire, the summed ring wait (enqueue ->
+pop, ``wait_s``: the part of that latency spent queued, not served) and
+the rows of padding the served batches carried (``padded``: over
+``completed``, the tick's wasted work).  ``snapshot()`` freezes everything
 into plain dicts per tick so benchmarks and the CLI can stream or diff
 them without touching live state.
 
@@ -53,8 +56,12 @@ class QueueTelemetry:
         self.latency_hist = np.zeros(len(LATENCY_EDGES_US) - 1, np.int64)
         self.latency_sum_us = 0.0
         self.latency_max_us = 0.0
+        self.wait_s = 0.0  # summed ring wait, enqueue -> pop
+        self.padded = 0    # rows of padding in this queue's batches (the
+        #                    sequential tick; a megastep window compacts)
 
-    def record(self, slots, verdicts, actions, latency_us, tick_s: float) -> None:
+    def record(self, slots, verdicts, actions, latency_us, tick_s: float, *,
+               wait_s: float = 0.0, padded: int = 0) -> None:
         slots = np.asarray(slots)
         verdicts = np.asarray(verdicts, bool)
         actions = np.asarray(actions)
@@ -62,6 +69,8 @@ class QueueTelemetry:
         self.ticks += 1
         self.completed += len(slots)
         self.busy_s += tick_s
+        self.wait_s += wait_s
+        self.padded += padded
         np.add.at(self.per_slot_total, slots, 1)
         np.add.at(self.per_slot_malicious, slots[verdicts], 1)
         for a in (pkt.ACTION_FORWARD, pkt.ACTION_DROP, pkt.ACTION_FLAG):
@@ -73,7 +82,8 @@ class QueueTelemetry:
 
     def record_bulk(self, *, ticks: int, completed: int, per_slot_total,
                     per_slot_malicious, actions, latency_us,
-                    busy_s: float) -> None:
+                    busy_s: float, wait_s: float = 0.0,
+                    padded: int = 0) -> None:
         """Fold a whole megastep window of device-accumulated counters in
         one call: totals equal those of ``ticks`` sequential ``record``
         calls; only the wall-clock attribution (``busy_s``, latencies)
@@ -82,6 +92,8 @@ class QueueTelemetry:
         self.ticks += int(ticks)
         self.completed += int(completed)
         self.busy_s += busy_s
+        self.wait_s += wait_s
+        self.padded += int(padded)
         self.per_slot_total += np.asarray(per_slot_total, np.int64)
         self.per_slot_malicious += np.asarray(per_slot_malicious, np.int64)
         self.actions += np.asarray(actions, np.int64)
@@ -120,6 +132,8 @@ class QueueTelemetry:
             "latency_p50_us": self.latency_quantile_us(0.50),
             "latency_p99_us": self.latency_quantile_us(0.99),
             "latency_max_us": self.latency_max_us,
+            "wait_s": self.wait_s,
+            "padded": self.padded,
         }
 
 
@@ -164,8 +178,10 @@ class Telemetry:
         self.window_last_s = now
 
     def record_tick(self, queue: int, slots, verdicts, actions,
-                    latency_us, tick_s: float) -> None:
-        self.queues[queue].record(slots, verdicts, actions, latency_us, tick_s)
+                    latency_us, tick_s: float, *, wait_s: float = 0.0,
+                    padded: int = 0) -> None:
+        self.queues[queue].record(slots, verdicts, actions, latency_us, tick_s,
+                                  wait_s=wait_s, padded=padded)
 
     def record_window(self, queue: int, **kw) -> None:
         """Bulk-fold one queue's megastep window (``QueueTelemetry.record_bulk``)."""
@@ -291,6 +307,8 @@ def _copy_queue(src: QueueTelemetry, queue: int) -> QueueTelemetry:
     out.latency_hist = src.latency_hist.copy()
     out.latency_sum_us = src.latency_sum_us
     out.latency_max_us = src.latency_max_us
+    out.wait_s = src.wait_s
+    out.padded = src.padded
     return out
 
 

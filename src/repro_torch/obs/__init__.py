@@ -1,6 +1,6 @@
 """Streaming observability for the data plane (DESIGN.md §11), torch port.
 
-Three layers, each usable alone:
+Four layers, each usable alone:
 
 * ``stream``  — ``TelemetryStream``, the bounded in-process event bus the
   runtime publishes telemetry deltas, epoch spans, and health-lease
@@ -8,6 +8,9 @@ Three layers, each usable alone:
 * ``server``  — ``ObsServer``, a threaded stdlib HTTP server exposing
   live mesh state as JSON + SSE, plus the self-contained
   ``dashboard.html`` renderer.
+* ``spans``   — ``SpanRecorder``, the data plane's own host spans (each
+  runtime's ``spans``), mirrored onto ``torch.profiler``'s timeline, and
+  the epoch and health spans of the stream;
 * ``anomaly`` — ``AnomalyDetector``, rolling-window detectors over the
   delta stream that classify the active traffic regime and *propose*
   (never auto-apply) typed command epochs.
@@ -17,5 +20,7 @@ has already copied off the device.
 """
 
 from repro_torch.obs.anomaly import AnomalyDetector  # noqa: F401
-from repro_torch.obs.spans import epoch_event, epoch_log_doc, health_event  # noqa: F401
+from repro_torch.obs.spans import (  # noqa: F401
+    SpanRecorder, epoch_event, epoch_log_doc, health_event,
+)
 from repro_torch.obs.stream import TelemetryStream, attach, detach  # noqa: F401

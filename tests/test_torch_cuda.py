@@ -15,7 +15,7 @@ kernels ragged blocks, D and H, row tiles that would cross a block, H past
 the wgmma column tile, out-of-range slot ids and both dtypes; each
 banked_matmul case checks the variant that ran (``matmul_variant``).
 Last, one run of the data-plane CLI on the card, its every tick served by
-the fused kernel; the LM serving engine and the LM trainer on the card
+the fused kernel; the runtime's spans under a profiler of host and device; the LM serving engine and the LM trainer on the card
 (preempted and resumed), neither launching a kernel of the port; a sharded
 train step and ``compressed_psum`` over a one-rank NCCL mesh, bit-equal to
 the unsharded step and to the codec.
@@ -251,6 +251,55 @@ def test_dataplane_cli_on_the_card(dev, tmp_path):
     aud = doc["snapshot"]["conservation"]
     assert aud["ok"] and aud["wrong_verdict"] == 0 and doc["continuity"]["ok"]
     assert ff.fused_forward.launches.get("gather/meta16/actions", 0) > 0
+
+
+def test_dataplane_spans_on_the_card(dev):
+    """The runtime's spans on the card, under a profiler of host and device:
+    every span of the tree recorded (the wait on the tick's event too), the
+    same verdicts as with the recorder off, and no span counted as device
+    work (a mirror on the device timeline, if any, is a user annotation)."""
+    from repro_torch.core import executor
+    from repro_torch.dataplane import DataplaneRuntime
+    from repro_torch.obs.spans import SPAN_NAMES
+
+    rng = np.random.default_rng(27)
+    bank = executor.init_bank(rng, 16, device=dev)
+    bursts = []
+    for _ in range(6):
+        rows = rng.integers(0, 2**32, (8192, 272), dtype=np.uint32)
+        rows[:, 0] = rng.integers(0, 16, 8192)
+        rows[:, 15] = np.arange(8192)
+        bursts.append(rows)
+
+    def run(spans: bool):
+        rt = DataplaneRuntime(bank, num_queues=4, batch=2048, ring_capacity=16384,
+                              record=True, device=dev)
+        rt.on_retire = lambda *args: None
+        if spans:
+            rt.spans.start()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for rows in bursts:
+                rt.dispatch(rows)
+                rt.tick()
+            rt.drain()
+        rt.spans.stop()
+        return rt, prof
+
+    off, _ = run(False)
+    on, prof = run(True)
+    assert on.completed_verdicts == off.completed_verdicts
+    assert on.completed_slots == off.completed_slots
+    s = on.spans.summary()
+    assert set(s) == set(SPAN_NAMES)
+    assert s["dp.tick.stage"]["rows"] == 6 * 8192 and s["dp.retire.wait"]["count"] > 0
+    host = [e.name for e in prof.events()
+            if e.device_type != torch.autograd.DeviceType.CUDA]
+    assert set(SPAN_NAMES) <= set(host)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name.startswith("dp."):
+            assert getattr(e, "is_user_annotation", False), e.name
 
 
 def test_serve_engine_on_the_card(dev):

@@ -29,6 +29,8 @@ CFG = jexecutor.BNNConfig(hidden=16)
 TIME_FIELDS = ("apply_latency_us", "apply_us")
 TIME_SNAPSHOT = ("busy_s", "pps_busy", "latency_mean_us", "latency_p50_us",
                  "latency_p99_us", "latency_max_us")
+# the port's own queue counters (ring wait, padded rows): the reference has none
+PORT_ONLY_SNAPSHOT = ("wait_s", "padded")
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +176,8 @@ def _untimed_snapshot(rt):
     for q in snap["queues"]:
         for f in TIME_SNAPSHOT:
             q.pop(f)
+        for f in PORT_ONLY_SNAPSHOT:
+            q.pop(f, None)
     return snap
 
 
