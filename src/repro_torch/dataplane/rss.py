@@ -10,9 +10,9 @@ construction:
 
 * the flow tuple lives in reg0 spare words 4..7 (16 B — src/dst address,
   ports, protocol as the traffic engine lays them out);
-* ``toeplitz_hash`` runs the standard MSB-first sliding-window XOR over a
-  secret key (default: the Microsoft reference RSS key), vectorized over
-  the batch;
+* ``toeplitz_hash`` computes the standard MSB-first sliding-window XOR
+  over a secret key (default: the Microsoft reference RSS key) by table
+  lookup, vectorized over the batch;
 * the hash indexes a 128-entry indirection table (RETA) mapping hash LSBs
   to queue ids.  Link failover is a RETA rewrite (``failover_table``), not
   a rehash — exactly how real NIC drivers migrate traffic off a dead queue.
@@ -51,8 +51,8 @@ DEFAULT_KEY = bytes(
 def _key_windows(key: bytes, n_bits: int) -> np.ndarray:
     """windows[j] = the 32-bit slice of ``key`` starting at bit j (MSB-first).
 
-    Toeplitz is "XOR together the key windows at every set input bit"; the
-    window table turns the per-bit shift loop into one vectorized select.
+    Toeplitz is "XOR together the key windows at every set input bit";
+    ``_hash_tables`` folds the windows into per-half-word lookup tables.
     """
     total_bits = len(key) * 8
     if total_bits < n_bits + 32:
@@ -65,24 +65,54 @@ def _key_windows(key: bytes, n_bits: int) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=8)
+def _hash_tables(key: bytes, n_words: int) -> np.ndarray:
+    """tables[i][v] = the Toeplitz hash of half-word ``v`` at half-word
+    position ``i`` of an ``n_words``-word input (all other bits zero).
+
+    Toeplitz is linear over GF(2): the hash of an input is the XOR of the
+    key windows at its set bits, so the XOR over the 16 bits of each
+    half-word can be tabulated once, and a hash is 2 * ``n_words`` lookups
+    XORed together.  Half-word ``i`` covers input bits 16i .. 16i+15, MSB
+    first.  Built from byte tables: entry ``hi << 8 | lo`` of a half-word's
+    table is the XOR of its two bytes' entries.  (2 * ``n_words``, 65536)
+    uint32, 256 KiB a half-word; read-only, since every caller shares it.
+    """
+    windows = _key_windows(key, n_words * 32).reshape(-1, 8)
+    bits = ((np.arange(256)[:, None] >> np.arange(7, -1, -1)) & 1).astype(bool)
+    byte_tables = np.bitwise_xor.reduce(
+        np.where(bits[None], windows[:, None, :], np.uint32(0)), axis=-1)
+    tables = (byte_tables[0::2, :, None] ^ byte_tables[1::2, None, :]
+              ).reshape(2 * n_words, 1 << 16)
+    tables.flags.writeable = False
+    return tables
+
+
 def toeplitz_hash(flow_words: np.ndarray, key: bytes = DEFAULT_KEY) -> np.ndarray:
     """Vectorized Toeplitz hash: (B, F) uint32 flow words -> (B,) uint32.
 
     Bit order matches the canonical definition: words are consumed
     big-endian, MSB first, so the result is reproducible against any
-    reference implementation fed the same 16 input bytes.
+    reference implementation fed the same 16 input bytes.  Each word's
+    high and low half-words index ``_hash_tables``, and the 2F entries
+    are XORed together.
     """
-    fw = np.ascontiguousarray(np.asarray(flow_words, np.uint32))
+    fw = np.asarray(flow_words, np.uint32)
     if fw.ndim == 1:
         fw = fw[None, :]
-    n_bits = fw.shape[-1] * 32
-    windows = _key_windows(key, n_bits)
-    # explicit width: reshape(-1) is ambiguous for empty batches
-    as_bytes = fw.astype(">u4").view(np.uint8).reshape(
-        *fw.shape[:-1], fw.shape[-1] * 4)
-    bits = np.unpackbits(as_bytes, axis=-1).astype(bool)  # (B, n_bits)
-    return np.bitwise_xor.reduce(
-        np.where(bits, windows, np.uint32(0)), axis=-1)
+    n_words = fw.shape[-1]
+    tables = _hash_tables(key, n_words)
+    # one gather over the rows, then every step below reads contiguously
+    words = np.ascontiguousarray(fw.reshape(-1, n_words).T)
+    # row 2i: word i's high half-word, row 2i+1: its low one, each offset
+    # into its own table, so that one lookup reads all 2F entries
+    idx = np.empty((n_words, 2, words.shape[1]), np.uint32)
+    np.right_shift(words, 16, out=idx[:, 0])
+    np.bitwise_and(words, 0xFFFF, out=idx[:, 1])
+    idx = idx.reshape(2 * n_words, -1)
+    idx += np.arange(0, 2 * n_words << 16, 1 << 16, dtype=np.uint32)[:, None]
+    return np.bitwise_xor.reduce(tables.reshape(-1).take(idx), axis=0
+                                 ).reshape(fw.shape[:-1])
 
 
 def flow_words_of(packets: np.ndarray) -> np.ndarray:

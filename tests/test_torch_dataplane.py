@@ -54,6 +54,94 @@ def test_toeplitz_and_queue_of_match_reference(seed):
                                   jrss.queue_of(rows, 4, reta=reta96))
 
 
+RANDOM_KEY = bytes(np.random.default_rng(40).integers(0, 256, 40, dtype=np.uint8))
+HASH_KEYS = pytest.mark.parametrize("key", [rss.DEFAULT_KEY, RANDOM_KEY],
+                                    ids=["ms_key", "random_key"])
+
+
+@HASH_KEYS
+@pytest.mark.parametrize("n_words", [1, 3, 4, 8])
+@pytest.mark.parametrize("batch", [0, 1, 8192])
+def test_table_hash_matches_reference(key, n_words, batch):
+    rng = np.random.default_rng(1000 * n_words + batch)
+    fw = rng.integers(0, 2**32, (batch, n_words), dtype=np.uint32)
+    got = rss.toeplitz_hash(fw, key)
+    assert got.dtype == np.uint32 and got.shape == (batch,)
+    np.testing.assert_array_equal(got, jrss.toeplitz_hash(fw, key))
+
+
+@HASH_KEYS
+def test_table_hash_extremes_match_reference(key):
+    zeros = np.zeros((1, rss.FLOW_WORDS), np.uint32)
+    ones = np.full((1, rss.FLOW_WORDS), 0xFFFFFFFF, np.uint32)
+    j = np.arange(rss.FLOW_BITS)
+    single = np.zeros((rss.FLOW_BITS, rss.FLOW_WORDS), np.uint32)
+    single[j, j // 32] = np.uint32(1) << (31 - j % 32).astype(np.uint32)
+    fw = np.concatenate([zeros, ones, single])
+    got = rss.toeplitz_hash(fw, key)
+    np.testing.assert_array_equal(got, jrss.toeplitz_hash(fw, key))
+    assert got[0] == 0
+    # one set input bit j hashes to the key's 32-bit window at bit j
+    np.testing.assert_array_equal(got[2:], rss._key_windows(key, rss.FLOW_BITS))
+
+
+def test_table_hash_one_tuple_is_a_batch_of_one():
+    fw = np.random.default_rng(7).integers(0, 2**32, rss.FLOW_WORDS,
+                                           dtype=np.uint32)
+    got = rss.toeplitz_hash(fw)
+    assert got.shape == (1,)
+    np.testing.assert_array_equal(got, jrss.toeplitz_hash(fw))
+
+
+@pytest.mark.parametrize("n_words", [4, 8])
+def test_table_hash_short_key_raises_as_reference(n_words):
+    fw = np.ones((2, n_words), np.uint32)
+    short = RANDOM_KEY[:4 * n_words + 3]    # one byte under n_bits + 32
+    for impl in (rss, jrss):
+        with pytest.raises(ValueError, match="key too short"):
+            impl.toeplitz_hash(fw, short)
+    enough = short + b"\x5a"
+    np.testing.assert_array_equal(rss.toeplitz_hash(fw, enough),
+                                  jrss.toeplitz_hash(fw, enough))
+
+
+def _ipv4(dotted: str) -> int:
+    return int.from_bytes(bytes(int(x) for x in dotted.split(".")), "big")
+
+
+# Microsoft's RSS verification suite (the default key): source address and
+# port, destination address and port, the IPv4-only hash, the IPv4 with TCP
+# hash.  The tuple is (src, dst) or (src, dst, sport << 16 | dport).
+@pytest.mark.parametrize("src,sport,dst,dport,ipv4,ipv4_tcp", [
+    ("66.9.149.187", 2794, "161.142.100.80", 1766, 0x323E8FC2, 0x51CCC178),
+    ("199.92.111.2", 14230, "65.69.140.83", 4739, 0xD718262A, 0xC626B0EA),
+    ("24.19.198.95", 12898, "12.22.207.184", 38024, 0xD2D0A5DE, 0x5C2B394A),
+    ("38.27.205.30", 48228, "209.142.163.6", 2217, 0x82989176, 0xAFC7327F),
+    ("153.39.163.191", 44251, "202.188.127.2", 1303, 0x5D1809C5, 0x10E828A2),
+])
+def test_table_hash_microsoft_verification_vectors(src, sport, dst, dport,
+                                                   ipv4, ipv4_tcp):
+    words = np.array([_ipv4(src), _ipv4(dst), sport << 16 | dport], np.uint32)
+    assert rss.toeplitz_hash(words[:2]).tolist() == [ipv4]
+    assert rss.toeplitz_hash(words).tolist() == [ipv4_tcp]
+
+
+def test_hash_tables_built_once_per_key_and_width():
+    rss._hash_tables.cache_clear()
+    fw = np.arange(12, dtype=np.uint32).reshape(3, rss.FLOW_WORDS)
+    rss.toeplitz_hash(fw)
+    rss.toeplitz_hash(fw[:1])
+    info = rss._hash_tables.cache_info()
+    assert (info.misses, info.hits, info.currsize) == (1, 1, 1)
+    tables = rss._hash_tables(rss.DEFAULT_KEY, rss.FLOW_WORDS)
+    assert rss._hash_tables(rss.DEFAULT_KEY, rss.FLOW_WORDS) is tables
+    assert tables.shape == (2 * rss.FLOW_WORDS, 1 << 16)
+    assert tables.dtype == np.uint32 and not tables.flags.writeable
+    assert rss._hash_tables(RANDOM_KEY, rss.FLOW_WORDS) is not tables
+    assert rss._hash_tables(rss.DEFAULT_KEY, 3) is not tables
+    assert rss._hash_tables.cache_info().currsize == 3
+
+
 def test_reta_tables_match_reference():
     for q in (1, 2, 4, 7):
         np.testing.assert_array_equal(rss.indirection_table(q),
