@@ -106,3 +106,30 @@ def summarize(prof, *, top: int = 10) -> dict:
         "idle_gaps": sorted(gaps.items(), key=lambda kv: -kv[1])[:top],
         "device_events": len(dev),
     }
+
+
+def busy_within(prof, name: str) -> tuple[float, int]:
+    """Device-busy seconds inside the harness's host spans ``bench.<name>``
+    (the union of every device activity, clipped to each span) and the
+    number of those spans.  A span that ends in a synchronisation holds all
+    the device work it launched."""
+    from torch.autograd import DeviceType
+
+    dev, spans = [], []
+    for e in prof.events():
+        tr = e.time_range
+        if e.device_type == DeviceType.CUDA:
+            if not (getattr(e, "is_user_annotation", False)
+                    or e.name.startswith(SPAN_PREFIX)):
+                dev.append((tr.start, tr.end))
+        elif e.name == SPAN_PREFIX + name:
+            spans.append((tr.start, tr.end))
+    busy = _union(dev)
+    starts = [b[0] for b in busy]
+    total = 0
+    for s0, s1 in spans:
+        for b0, b1 in busy[max(bisect.bisect_right(starts, s0) - 1, 0):]:
+            if b0 >= s1:
+                break
+            total += max(0, min(b1, s1) - max(b0, s0))
+    return total * 1e-6, len(spans)

@@ -151,7 +151,8 @@ def _chain(first, then):
 def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, *,
              device=None, overrides: dict | None = None, t_start=None,
              control: bool = False, log=None) -> dict:
-    """Run one cell once.  Returns the result (the printed line's object,
+    """Run one cell once: the data plane here, or the runner its
+    configuration names (``Spec``).  Returns the result (the printed line's object,
     ``checks`` last: each compared number with its limit).  ``device=None``
     means the card and raises ``NoDevice`` without one; ``overrides``
     (``{"config": ..., "mix": ...}``) merges into the configuration and the
@@ -164,6 +165,10 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, *,
     log = log or (lambda s: print(s, file=sys.stderr, flush=True))
     root = Path(root)
     cell = Spec(root).cell(workload)
+    if cell.runner is not None:
+        return cell.runner.run_cell(root, workload, seed, seconds, trace,
+                                    device=device, overrides=overrides,
+                                    t_start=t_start, control=control, log=log)
     overrides = overrides or {}
     cfg = _merge(cell.config, overrides.get("config"))
     cell.mix = _merge(cell.mix, overrides.get("mix"))

@@ -9,6 +9,10 @@ the harness finds
 * the configuration's hooks, the modules it names under ``attach`` beside
   it (``configs/<hook>.py``, each with ``attach(runtime)``): an observer or
   a cache put onto the data plane once it is built, before the warm-up;
+* the configuration's runner, the module it names under ``runner``
+  (``runners/<runner>.py``, with a ``run_cell`` of ``benchkit.runner``'s
+  signature and result): a configuration without the key runs the data
+  plane's ``benchkit.runner.run_cell``;
 * the mix in ``traffic/<traffic>.json``, and its generator: the general one
   (``benchkit.traffic.build``), or the module the mix names under
   ``generator`` (``traffic/<generator>.py``, with a ``build`` of the same
@@ -20,8 +24,8 @@ the harness finds
   the end-to-end metric it moves (``tick_us_per_kpkt.sat``, ``.lat``) has
   one reader.
 
-So a later cell, configuration, mix or metric is added by adding files and
-entries; nothing here names one.
+So a later cell, configuration, mix, metric or runner is added by adding
+files and entries; nothing here names one.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import dataclasses
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 
 from benchkit import traffic
@@ -67,6 +72,7 @@ class Cell:
     config: dict
     mix: dict
     reference: object
+    runner: object            # the runner's module, None for the data plane
     generator: object
     hooks: list
     end_to_end: list
@@ -78,6 +84,7 @@ def _module(path: Path, name: str):
         raise SpecError(f"missing {path}")
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod       # a dataclass in the module looks itself up
     spec.loader.exec_module(mod)
     return mod
 
@@ -157,6 +164,12 @@ class Spec:
         for h, mod in zip(config.get("attach", ()), hooks):
             if not callable(getattr(mod, "attach", None)):
                 raise SpecError(f"hook {h}.py has no attach(runtime)")
+        runner = None
+        if "runner" in config:
+            runner = _module(self.home / "runners" / f"{config['runner']}.py",
+                             f"bench_runner_{_ident(config['runner'])}")
+            if not callable(getattr(runner, "run_cell", None)):
+                raise SpecError(f"runners/{config['runner']}.py has no run_cell()")
         mix = _json(self.home / "traffic" / f"{w['traffic']}.json")
         generator = traffic.build
         if "generator" in mix:
@@ -174,7 +187,7 @@ class Spec:
         for m in e2e + layer:
             m.reader = self._reader(m.name)
         return Cell(name=name, chips=int(w["chips"]), config=config, mix=mix,
-                    reference=ref, generator=generator, hooks=hooks,
+                    reference=ref, runner=runner, generator=generator, hooks=hooks,
                     end_to_end=e2e, per_layer=layer)
 
     def _reader(self, name: str):

@@ -1,17 +1,20 @@
 """A cell made of added files alone (a configuration, a mix and a metric
 copied under new names; a configuration that turns the recorder on, names a
 routing policy and attaches an observer; a mix with a generator of its
-own) is found, validated
-and run by the harness with no edit to any file it already has."""
+own; a serving configuration with a reference of its own) is found,
+validated and run by the harness with no edit to any file it already has.
+A configuration resolves to the runner it names, and without one to the
+data plane's."""
 
 import json
 import shutil
+from pathlib import Path
 
 import pytest
 
 from benchkit import runner
 from benchkit.spec import Spec, SpecError
-from conftest import BENCH, ROOT, SMALL
+from conftest import BENCH, ROOT, SERVE_SMALL, SMALL
 
 
 @pytest.fixture
@@ -147,3 +150,63 @@ def test_every_cell_resolves(held, bench_root):
         assert c.end_to_end and c.per_layer
         used.add(w["config"])
     assert used == {c["name"] for c in doc["configs"]}
+
+
+def test_a_configuration_resolves_to_its_runner(bench_root):
+    spec = Spec(bench_root)
+    for cell in ("h32-k16-q4.steady-sat", "h32-k2-q1.boundary-sat",
+                 "h32-k16-q4-mega8.steady-sat"):
+        assert spec.cell(cell).runner is None      # the data plane's run_cell
+    serve = spec.cell("mamba2-130m-h4.chat-sat").runner
+    assert Path(serve.__file__).resolve() == BENCH / "runners" / "serve.py"
+    assert serve.run_cell is not runner.run_cell
+
+
+def test_a_missing_runner_is_refused(checkout):
+    cfg = json.loads((checkout / "bench/configs/h32-k2-q1.json").read_text())
+    cfg["runner"] = "no_such_runner"
+    (checkout / "bench/configs/h32-k2-q1.json").write_text(json.dumps(cfg))
+    (checkout / "BENCHMARK.json").write_text((ROOT / "BENCHMARK.json").read_text())
+    with pytest.raises(SpecError, match="no_such_runner"):
+        Spec(checkout).cell("h32-k2-q1.boundary-sat")
+
+
+def test_a_serving_cell_of_added_files(checkout, monkeypatch, one_thread):
+    # a later serving configuration: its file, its reference and a mix,
+    # copied under new names, and entries in BENCHMARK.json
+    from benchkit import spec as spec_mod
+
+    before = {p: p.read_bytes() for p in (checkout / "bench").rglob("*") if p.is_file()}
+    cfg = json.loads((checkout / "bench/configs/mamba2-130m-h4.json").read_text())
+    cfg["name"], cfg["reference"] = "mamba2-130m-h2", "mamba2_lm_copy"
+    cfg["model"]["bank_slots"] = 2
+    (checkout / "bench/configs/mamba2-130m-h2.json").write_text(json.dumps(cfg))
+    shutil.copy(checkout / "bench/configs/mamba2_lm.py",
+                checkout / "bench/configs/mamba2_lm_copy.py")
+    shutil.copy(checkout / "bench/traffic/chat-sat.json",
+                checkout / "bench/traffic/chat-copy.json")
+    doc = json.loads((ROOT / "BENCHMARK.json").read_text())
+    doc["configs"].append({"name": "mamba2-130m-h2", "source": "a copy",
+                           "file": "bench/configs/mamba2-130m-h2.json",
+                           "reduced": [], "why": "a copy"})
+    cell = "mamba2-130m-h2.chat-copy"
+    doc["workloads"].append({"name": cell, "config": "mamba2-130m-h2",
+                             "traffic": "chat-copy", "chips": 1, "why": "a copy"})
+    for m in doc["end_to_end"] + doc["per_layer"]:
+        if "mamba2-130m-h4.chat-sat" in m.get("workloads", ()):
+            m["workloads"].append(cell)
+    (checkout / "BENCHMARK.json").write_text(json.dumps(doc))
+
+    loaded = []
+    real = spec_mod._module
+    monkeypatch.setattr(spec_mod, "_module",
+                        lambda path, name: loaded.append(path) or real(path, name))
+    c = Spec(checkout).cell(cell)
+    assert [m.name for m in c.end_to_end] == ["serve_tok_s", "setup_s"]
+    assert checkout / "bench/configs/mamba2_lm_copy.py" in loaded
+    res = runner.run_cell(checkout, cell, 2**31 + 13, 2.0, False, device="cpu",
+                          overrides=SERVE_SMALL["mamba2-130m-h4.chat-sat"],
+                          log=lambda s: None)
+    assert res["correct"], res["checks"]
+    assert res["metrics"]["serve_tok_s"]["value"] > 0
+    assert {p: p.read_bytes() for p in before} == before

@@ -2,12 +2,20 @@
 runs come out correct, and a run whose timed path is broken underneath comes
 out not correct, for each fault the cells can have."""
 
+import json
+
 import pytest
 
 from benchkit import runner
-from conftest import SMALL
+from conftest import BENCH, SMALL
 
 CELLS = sorted(SMALL)
+# cells served tick by tick (``packet_step``); the megastep cells serve a
+# window of ticks in one launch (``megastep._run_window``)
+TICK_CELLS = [c for c in CELLS if json.loads(
+    (BENCH / "configs" / f"{c.split('.')[0]}.json").read_text())["runtime"]
+    ["megastep_ticks"] == 1]
+WINDOW_CELLS = [c for c in CELLS if c not in TICK_CELLS]
 
 
 def run(root, cell, seed=2**31 + 99, seconds=0.6):
@@ -23,7 +31,7 @@ def test_sound_run_is_correct(cell, bench_root):
     assert list(res)[-1] == "checks"
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", TICK_CELLS)
 def test_an_answer_altered_where_it_is_produced(cell, bench_root, monkeypatch):
     from repro_torch.core import pipeline
 
@@ -35,6 +43,24 @@ def test_an_answer_altered_where_it_is_produced(cell, bench_root, monkeypatch):
         return res
 
     monkeypatch.setattr(pipeline, "packet_step", altered)
+    res = run(bench_root, cell)
+    assert not res["correct"]
+    assert res["checks"]["wrong_answers"]["value"] > 0
+
+
+@pytest.mark.parametrize("cell", WINDOW_CELLS)
+def test_an_answer_altered_where_a_window_produces_it(cell, bench_root, monkeypatch):
+    from repro_torch.dataplane import megastep
+
+    real = megastep._run_window
+
+    def altered(*a, **k):
+        rings, out = real(*a, **k)
+        n = a[2]["bt"].shape[0] * k["width"]          # the actions slab, last
+        out[-n:] = (out[-n:] + 1) % 3
+        return rings, out
+
+    monkeypatch.setattr(megastep, "_run_window", altered)
     res = run(bench_root, cell)
     assert not res["correct"]
     assert res["checks"]["wrong_answers"]["value"] > 0

@@ -9,6 +9,8 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 from conftest import BENCH, ROOT
 
 PROBE = r"""
@@ -30,8 +32,9 @@ def _env():
     return env
 
 
-def test_setup_loads_no_jax_and_no_reference_package():
-    out = subprocess.run([sys.executable, "-c", PROBE, "h32-k16-q4.steady-sat"],
+@pytest.mark.parametrize("cell", ["h32-k16-q4.steady-sat", "mamba2-130m-h4.chat-sat"])
+def test_setup_loads_no_jax_and_no_reference_package(cell):
+    out = subprocess.run([sys.executable, "-c", PROBE, cell],
                          cwd=ROOT, env=_env(), capture_output=True, text=True,
                          timeout=300)
     res = json.loads(out.stdout.strip().splitlines()[-1])

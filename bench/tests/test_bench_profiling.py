@@ -34,3 +34,20 @@ def test_summarize():
     assert dict(out["idle_gaps"]) == pytest.approx(
         {"bench.tick": 40e-6,                      # 30..70: in the span alone
          "bench.dispatch>aten::unique": 115e-6})   # 80..195
+
+
+def test_busy_within():
+    # device work inside two decode spans, one outside any, one straddling
+    trace = [
+        ev("bench.decode_step", 0, 100), ev("bench.decode_step", 0, 100, device=True,
+                                            annotation=True),
+        ev("void k<1>(int)", 10, 30, device=True),
+        ev("void k<2>(int)", 20, 40, device=True),       # overlaps: 10..40
+        ev("bench.admit_step", 100, 200),
+        ev("void k<1>(int)", 120, 150, device=True),     # another span's
+        ev("bench.decode_step", 200, 300),
+        ev("void k<1>(int)", 290, 320, device=True),     # 290..300 inside
+    ]
+    busy, n = profiling.busy_within(NS(events=lambda: trace), "decode_step")
+    assert n == 2
+    assert busy == pytest.approx((30 + 10) * 1e-6)
