@@ -56,12 +56,15 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, device=No
     return _lm.init_cache(cfg, batch, seq_len, dtype, device=dev)
 
 
-def decode_step(params, tokens, cache, cache_len, cfg: ModelConfig, slot_ids=None):
-    """One token per row; the cache is written in place and returned."""
+def decode_step(params, tokens, cache, cache_len, cfg: ModelConfig, slot_ids=None,
+                spans=None):
+    """One token per row; the cache is written in place and returned.
+    ``spans`` (a ``SpanRecorder``) times the layers where a family opens
+    spans inside its step (``zamba2``)."""
     if cfg.family == "encdec":
         return _encdec.encdec_decode_step(params, tokens, cache, cache_len, cfg,
                                           slot_ids)
-    return _lm.lm_decode_step(params, tokens, cache, cache_len, cfg, slot_ids)
+    return _lm.lm_decode_step(params, tokens, cache, cache_len, cfg, slot_ids, spans)
 
 
 # ---------------------------------------------------------------------------

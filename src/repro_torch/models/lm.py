@@ -12,6 +12,16 @@ Hybrid structure (zamba2): ``n_groups = L // attn_every`` groups, each =
 attention block (one module called from every group — itself a resident
 shared executor in the BoundSwitch sense), plus trailing mamba layers.
 
+The published Zamba2 (family ``zamba2``, ``configs.zamba2_7b_instruct``):
+per layer i, ``x = x + mamba_i(norm_i(x + t_i))``, where ``t_i`` is zero
+except at the hybrid sites; at site j (layer ``hybrid_layer_ids[j]``)
+``t_i = linear_j(block_{j mod M}(x, e, j))``, e the token embeddings, M
+the shared blocks.  A block: ``a = RMSNorm([x, e])``, attention over
+``a`` (scale (head_dim / 2) ** -0.5), RMSNorm, then a GELU-gated MLP whose
+gate_up adds site j's low-rank delta.  Its cache holds KV for the sites
+(``kv``: ``(sites, B, G, Lc, hd)``) beside SSM and conv state for every
+layer.
+
 Caches keep the reference's leaf names and layouts, stacked over layers:
 KV ``(L, B, G, Lc, hd)``, SSM state ``(..., n, B, H, P, N)``, conv state
 ``(..., n, B, W-1, C)``; decode writes them in place.
@@ -27,6 +37,7 @@ needs gradients.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional
 
@@ -85,6 +96,32 @@ class DenseLayer(tnn.Module):
             self.adapter = Adapter(cfg, cfg.d_model, gen, device)
 
 
+class SharedBlock(tnn.Module):
+    """One of the published hybrid's shared blocks (family ``zamba2``):
+    attention over [hidden, embeddings], then a GELU-gated MLP."""
+
+    def __init__(self, cfg: ModelConfig, gen, device):
+        super().__init__()
+        dt = nn.cdtype(cfg)
+        self.ln_attn = nn.RMSNorm(cfg.attn_width, dt, device)
+        self.attn = nn.Attention(cfg, gen, device, d_in=cfg.attn_width)
+        self.ln_mlp = nn.RMSNorm(cfg.d_model, dt, device)
+        self.mlp = nn.GeluMLP(cfg, gen, device)
+
+
+class Site(tnn.Module):
+    """What a hybrid site holds of its own: the rank-r delta on its
+    block's gate_up (``lora_a`` (d, r), ``lora_b`` (r, 2 d_ff)) and the
+    linear that maps the block's output (``linear`` (d, d))."""
+
+    def __init__(self, cfg: ModelConfig, gen, device):
+        super().__init__()
+        d, r, dt = cfg.d_model, cfg.shared_adapter_rank, nn.cdtype(cfg)
+        self.lora_a = nn._dense_init(gen, (d, r), dt, device)
+        self.lora_b = nn._const(0.0, (r, 2 * cfg.d_ff), dt, device)
+        self.linear = nn._dense_init(gen, (d, d), dt, device)
+
+
 class SSMLayer(tnn.Module):
     def __init__(self, cfg: ModelConfig, gen, device):
         super().__init__()
@@ -123,8 +160,10 @@ def _dense_layer_apply(lp: DenseLayer, x, cfg, *, positions, kv_cache=None,
 
 
 def _ssm_layer_apply(lp: SSMLayer, x, cfg, *, ssm_state=None, conv_state=None,
-                     slot_ids=None, pad_mask=None, last_valid=None):
-    xn = nn.rmsnorm(lp.ln1, x, cfg.norm_eps)
+                     slot_ids=None, pad_mask=None, last_valid=None, t=None):
+    """``x + mamba(norm(x))``; ``t`` (a hybrid site's output) joins the
+    mamba's input only: ``x + mamba(norm(x + t))``."""
+    xn = nn.rmsnorm(lp.ln1, x if t is None else x + t, cfg.norm_eps)
     h, new_ssm, new_conv = ssd_lib.mamba_apply(
         lp.mamba, xn, cfg, ssm_state=ssm_state, conv_state=conv_state,
         pad_mask=pad_mask, last_valid=last_valid,
@@ -172,6 +211,12 @@ class LM(tnn.Module):
             if trailing:
                 self.trailing = _ssm_stack(cfg, trailing, gen, device)
             self.shared_attn = DenseLayer(cfg, gen, device)  # ONE shared block
+        elif cfg.family == "zamba2":
+            self.layers = _ssm_stack(cfg, cfg.n_layers, gen, device)
+            self.blocks = tnn.ModuleList(
+                SharedBlock(cfg, gen, device) for _ in range(cfg.num_mem_blocks))
+            self.sites = tnn.ModuleList(
+                Site(cfg, gen, device) for _ in cfg.hybrid_layer_ids)
         else:
             raise ValueError(f"LM does not handle family {cfg.family!r}")
 
@@ -226,6 +271,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
         if trailing:
             cache["trailing"] = mamba_states(trailing)
         return cache
+    if cfg.family == "zamba2":
+        return dict(mamba_states(cfg.n_layers), kv=kv(len(cfg.hybrid_layer_ids)))
     raise ValueError(cfg.family)
 
 
@@ -263,6 +310,61 @@ def _final_logits(params, x, cfg, slot_ids=None):
     if cfg.bank_mode == "head" and slot_ids is not None and hasattr(params, "bank_head"):
         return banked_logits(params.bank_head, x, cfg, slot_ids)
     return nn.logits_apply(params.embed, params.head, x, cfg)
+
+
+def _site_apply(params: LM, j: int, x, e, cfg, *, positions, kv_cache=None,
+                cache_len=None):
+    """Hybrid site j (family ``zamba2``): block j mod M over [x, e] with
+    site j's delta on its gate_up, then site j's linear.  Returns (its
+    output, the block's KV: the prompt's, or ``kv_cache`` written)."""
+    blk, site = params.blocks[j % len(params.blocks)], params.sites[j]
+    a = nn.rmsnorm(blk.ln_attn, torch.cat([x, e], dim=-1), cfg.norm_eps)
+    h, kv = nn.attention_apply(blk.attn, a, cfg, positions=positions, kv_cache=kv_cache,
+                               cache_len=cache_len, scale=(cfg.head_dim / 2) ** -0.5)
+    h = nn.rmsnorm(blk.ln_mlp, h, cfg.norm_eps)
+    delta = nn.project(nn.project(h, site.lora_a), site.lora_b)
+    return nn.project(nn.gelu_mlp_apply(blk.mlp, h, delta), site.linear), kv
+
+
+def _zamba2_apply(params: LM, x, cfg, *, positions, slot_ids, pad_mask, last_valid):
+    """The published hybrid over a full sequence: (x, its cache)."""
+    e, site = x, {layer: j for j, layer in enumerate(cfg.hybrid_layer_ids)}
+    states, kvs = [], []
+    for i, lp in enumerate(params.layers):
+        t = None
+        if i in site:
+            t, kv = _site_apply(params, site[i], x, e, cfg, positions=positions)
+            kvs.append(kv)
+        x, ssm, conv = maybe_remat(_ssm_layer_apply, cfg)(
+            lp, x, cfg, slot_ids=slot_ids, pad_mask=pad_mask, last_valid=last_valid, t=t)
+        states.append({"ssm": ssm, "conv": conv})
+    return x, dict(stack_caches(states), kv=stack_caches(kvs))
+
+
+def _nospan(name):
+    return contextlib.nullcontext()
+
+
+def _zamba2_decode(params: LM, x, cfg, cache, cache_len, positions, slot_ids, spans):
+    """One token through the published hybrid, the cache written in place;
+    each site under ``serve.decode.shared`` and each mamba layer under
+    ``serve.decode.mamba`` (``spans``: a ``SpanRecorder``, or None)."""
+    span = _nospan if spans is None else spans.span
+    e, site = x, {layer: j for j, layer in enumerate(cfg.hybrid_layer_ids)}
+    for i, lp in enumerate(params.layers):
+        t = None
+        if i in site:
+            with span("serve.decode.shared"):
+                t, _ = _site_apply(params, site[i], x, e, cfg, positions=positions,
+                                   kv_cache=_layer_view(cache["kv"], site[i]),
+                                   cache_len=cache_len)
+        with span("serve.decode.mamba"):
+            x, ssm, conv = _ssm_layer_apply(lp, x, cfg, ssm_state=cache["ssm"][i],
+                                            conv_state=cache["conv"][i],
+                                            slot_ids=slot_ids, t=t)
+            cache["ssm"][i] = ssm
+            cache["conv"][i] = conv
+    return x
 
 
 def _ssm_stack_apply(layers, x, cfg, *, slot_ids, pad_mask, last_valid):
@@ -324,6 +426,9 @@ def lm_apply(params: LM, batch, cfg: ModelConfig, *, return_cache: bool = False)
             x, caches["trailing"] = _ssm_stack_apply(
                 params.trailing, x, cfg, slot_ids=slot_ids,
                 pad_mask=pad_mask, last_valid=last_valid)
+    elif cfg.family == "zamba2":
+        x, caches = _zamba2_apply(params, x, cfg, positions=positions, slot_ids=slot_ids,
+                                  pad_mask=pad_mask, last_valid=last_valid)
     else:
         raise ValueError(cfg.family)
 
@@ -345,11 +450,12 @@ def _ssm_stack_decode(layers, x, cfg, cache, slot_ids):
 
 
 def lm_decode_step(params: LM, tokens, cache, cache_len, cfg: ModelConfig,
-                   slot_ids=None):
+                   slot_ids=None, spans=None):
     """One decode step.  tokens: (B, 1); cache from ``init_cache``, written
     in place and returned; cache_len: a scalar or a (B,) tensor — the
-    number of valid context tokens of each row.  Returns (logits (B, 1, V),
-    cache)."""
+    number of valid context tokens of each row.  ``spans``: a
+    ``SpanRecorder`` for the ``zamba2`` family's layer spans.  Returns
+    (logits (B, 1, V), cache)."""
     x = nn.embed_apply(params.embed, tokens)
     bsz = x.shape[0]
     positions = None
@@ -376,6 +482,8 @@ def lm_decode_step(params: LM, tokens, cache, cache_len, cfg: ModelConfig,
                 slot_ids=slot_ids)
         if hasattr(params, "trailing"):
             x = _ssm_stack_decode(params.trailing, x, cfg, cache["trailing"], slot_ids)
+    elif cfg.family == "zamba2":
+        x = _zamba2_decode(params, x, cfg, cache, cache_len, positions, slot_ids, spans)
     else:
         raise ValueError(cfg.family)
 

@@ -258,12 +258,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, gen, device):
+    """q, k, v from inputs ``d_in`` wide (default ``d_model``), o back to
+    ``d_model``."""
+
+    def __init__(self, cfg: ModelConfig, gen, device, d_in: Optional[int] = None):
         super().__init__()
         d, hd, dt = cfg.d_model, cfg.head_dim, cdtype(cfg)
-        self.wq = _dense_init(gen, (d, cfg.n_heads * hd), dt, device)
-        self.wk = _dense_init(gen, (d, cfg.n_kv_heads * hd), dt, device)
-        self.wv = _dense_init(gen, (d, cfg.n_kv_heads * hd), dt, device)
+        d_in = d_in or d
+        self.wq = _dense_init(gen, (d_in, cfg.n_heads * hd), dt, device)
+        self.wk = _dense_init(gen, (d_in, cfg.n_kv_heads * hd), dt, device)
+        self.wv = _dense_init(gen, (d_in, cfg.n_kv_heads * hd), dt, device)
         self.wo = _dense_init(gen, (cfg.n_heads * hd, d), dt, device,
                               scale=(cfg.n_heads * hd) ** -0.5)
 
@@ -444,7 +448,7 @@ def _flash_shards(q, k, v, *, q_offset: int, q_block: int,
 def _flash_body(q, k, v, *, causal: bool, window: Optional[int],
                 q_offset: int, k_offset: int, q_block: int, k_block: int,
                 remat: bool = False, seq_shard_axis: Optional[str] = None,
-                tile: bool = False):
+                tile: bool = False, scale: Optional[float] = None):
     """Online-softmax attention.
 
     q: (B, G, gq, Sq, D); k, v: (B, G, Skv, D).  Offsets give absolute
@@ -459,15 +463,15 @@ def _flash_body(q, k, v, *, causal: bool, window: Optional[int],
     count does not divide the TP degree.  ``tile``: on DTensors, tile a
     mesh dim that splits neither the groups nor the heads as GSPMD does
     (``_flash_shards``).  Plain tensors have no mesh, and neither changes
-    anything.
+    anything.  ``scale`` multiplies the scores (default D ** -0.5).
     """
     if isinstance(q, DTensor):
         return _flash_shards(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, k_offset=k_offset, q_block=q_block,
                              k_block=k_block, remat=remat,
-                             seq_shard_axis=seq_shard_axis, tile=tile)
+                             seq_shard_axis=seq_shard_axis, tile=tile, scale=scale)
     bsz, g, gq, sq, d = q.shape
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     dev = q.device
 
     def q_step(qs, k, v, iq):
@@ -539,7 +543,7 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> N
     cache[rows, :, slot] = new[:, :, 0].to(cache.dtype)
 
 
-def _decode_attention_int8(q, k, v, kv_cache, slot, valid, hd):
+def _decode_attention_int8(q, k, v, kv_cache, slot, valid, scale):
     """Single-token attention over an int8-quantized KV cache.
 
     Cache: k/v int8 (B, G, L, D) + k_scale/v_scale f32 (B, G, L).  Both
@@ -556,9 +560,9 @@ def _decode_attention_int8(q, k, v, kv_cache, slot, valid, hd):
     _write_rows(cvs, vs_new, slot)
 
     qq, qs = _quantize_rows(q)                    # (B,G,gq,1,D)i8, (B,G,gq,1)
-    scores_i = _int_dot(qq, ck.transpose(-1, -2)[:, :, None], hd)
+    scores_i = _int_dot(qq, ck.transpose(-1, -2)[:, :, None], q.shape[-1])
     scores = scores_i.to(F32) * qs[..., None] \
-        * cks[:, :, None, None, :] * (hd ** -0.5)
+        * cks[:, :, None, None, :] * scale
     scores = torch.where(valid[:, None, None, None], scores, NEG)
     p = torch.softmax(scores, dim=-1)
     w = p * cvs[:, :, None, None, :]              # fold per-token v scale in
@@ -614,8 +618,10 @@ def _pick_block(s: int, target: int) -> int:
 def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, kv_cache: Optional[dict] = None,
                     cache_len=None, causal: bool = True,
-                    q_block: int = 512, k_block: int = 1024):
-    """Self-attention over x: (B, S, d).
+                    q_block: int = 512, k_block: int = 1024,
+                    scale: Optional[float] = None):
+    """Self-attention over x: (B, S, d_in), the scores scaled by ``scale``
+    (default head_dim ** -0.5).
 
     Training / prefill: ``kv_cache is None`` -> flash over the sequence;
     returns (out, new_kv) where new_kv holds the full k/v (prefill cache).
@@ -627,6 +633,7 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     bsz, s, _ = x.shape
     hq, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gq = hq // g
+    scale = hd ** -0.5 if scale is None else scale
     # under FSDP (q's weight sharded over its rows) the reference runs
     # attention on the whole batch on every FSDP rank with its heads tiled;
     # the port keeps its batch split there and tiles no heads (arctic-480b:
@@ -647,7 +654,8 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
             q, k, v, causal=causal, window=cfg.sliding_window,
             q_offset=0, k_offset=0, q_block=_pick_block(s, q_block),
             k_block=_pick_block(s, k_block), remat=cfg.flash_remat,
-            seq_shard_axis="model" if cfg.seq_shard_attention else None, tile=tile)
+            seq_shard_axis="model" if cfg.seq_shard_attention else None, tile=tile,
+            scale=scale)
         new_cache = {"k": k, "v": v}
     else:
         lcache = kv_cache["k"].shape[2]
@@ -660,12 +668,12 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
             valid = kpos[None, :] < torch.clamp(cl + 1, max=lcache)[:, None]
 
         if "k_scale" in kv_cache:
-            out, new_cache = _decode_attention_int8(q, k, v, kv_cache, slot, valid, hd)
+            out, new_cache = _decode_attention_int8(q, k, v, kv_cache, slot, valid, scale)
         else:
             ck, cv = kv_cache["k"], kv_cache["v"]
             _write_rows(ck, k, slot)
             _write_rows(cv, v, slot)
-            scores = _qk(q, ck) * (hd ** -0.5)
+            scores = _qk(q, ck) * scale
             scores = torch.where(valid[:, None, None, None], scores, NEG)
             probs, vd, idle = _idle_heads(torch.softmax(scores, dim=-1), cv)
             out = _pv(probs, vd)
@@ -696,6 +704,27 @@ class MLP(nn.Module):
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(project(x, p.wg).to(F32)).to(x.dtype)
     return project(h * project(x, p.wu), p.wd)
+
+
+class GeluMLP(nn.Module):
+    """The GELU-gated MLP: ``wgu`` (d, 2 d_ff) holds the gate's columns,
+    then the up projection's; ``wd`` (d_ff, d)."""
+
+    def __init__(self, cfg: ModelConfig, gen, device):
+        super().__init__()
+        d, f, dt = cfg.d_model, cfg.d_ff, cdtype(cfg)
+        self.wgu = _dense_init(gen, (d, 2 * f), dt, device)
+        self.wd = _dense_init(gen, (f, d), dt, device, scale=f ** -0.5)
+
+
+def gelu_mlp_apply(p: GeluMLP, x: torch.Tensor, delta=None) -> torch.Tensor:
+    """down(gelu(g) * u), [g, u] = x @ wgu (+ ``delta``, a low-rank term of
+    the caller's)."""
+    gu = project(x, p.wgu)
+    if delta is not None:
+        gu = gu + delta
+    g, u = gu.chunk(2, dim=-1)
+    return project(F.gelu(g.to(F32)).to(x.dtype) * u, p.wd)
 
 
 # ---------------------------------------------------------------------------

@@ -30,15 +30,20 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.nn.modules import (F32, RMSNorm, _const, _dense_init, cdtype, reduce_pending,
-                                    rmsnorm)
+from repro_torch.nn.modules import F32, RMSNorm, _const, _dense_init, cdtype, reduce_pending
+
+
+def ssm_groups(cfg: ModelConfig) -> int:
+    """B/C groups: head h reads group h // (H / G).  One unless the
+    configuration names more (``configs.zamba2_7b_instruct``)."""
+    return getattr(cfg, "ssm_groups", 1)
 
 
 def ssm_dims(cfg: ModelConfig):
     di = cfg.d_inner
     h = cfg.ssm_heads
     n = cfg.ssm_state
-    conv_dim = di + 2 * n  # conv runs over [x, B, C]
+    conv_dim = di + 2 * ssm_groups(cfg) * n  # conv runs over [x, B, C]
     return di, h, n, conv_dim
 
 
@@ -48,7 +53,7 @@ class Mamba(nn.Module):
         d = cfg.d_model
         di, h, n, conv_dim = ssm_dims(cfg)
         dt = cdtype(cfg)
-        proj_out = 2 * di + 2 * n + h  # [z, x, B, C, dt]
+        proj_out = 2 * di + 2 * ssm_groups(cfg) * n + h  # [z, x, B, C, dt]
         self.in_proj = _dense_init(gen, (d, proj_out), dt, device)
         self.conv_w = _dense_init(gen, (cfg.ssm_conv_width, conv_dim), dt, device, scale=0.5)
         self.conv_b = _const(0.0, (conv_dim,), dt, device)
@@ -76,21 +81,24 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, init_state=None, scores=None):
     """SSD over a full sequence.
 
     x: (B, S, H, P) values; dt: (B, S, H) positive step sizes;
-    a: (H,) negative decay rates; b, c: (B, S, N) (single B/C group).
-    ``scores``: the (B, S / chunk, chunk, chunk) C·Bᵀ products within each
-    chunk, when the caller has them (``_HeadShards``); else computed here.
-    Returns y: (B, S, H, P) and final state (B, H, P, N).
+    a: (H,) negative decay rates; b, c: (B, S, G, N) in G groups, head h
+    reading group h // (H / G) ((B, S, N) is one group).
+    ``scores``: the (B, S / chunk, G, chunk, chunk) C·Bᵀ products within
+    each chunk, when the caller has them (``_HeadShards``); else computed
+    here.  Returns y: (B, S, H, P) and final state (B, H, P, N).
     """
+    if b.ndim == 3:
+        b, c = b[:, :, None], c[:, :, None]
     bsz, s, h, p = x.shape
-    n = b.shape[-1]
+    g, n = b.shape[-2:]
     if s % chunk:
         raise ValueError(f"seq {s} not divisible by chunk {chunk}")
     nc = s // chunk
 
     xc = x.reshape(bsz, nc, chunk, h, p).to(F32)
     dtc = dt.reshape(bsz, nc, chunk, h).to(F32)
-    bc = b.reshape(bsz, nc, chunk, n).to(F32)
-    cc = c.reshape(bsz, nc, chunk, n).to(F32)
+    bc = b.reshape(bsz, nc, chunk, g, n).to(F32)
+    cc = c.reshape(bsz, nc, chunk, g, n).to(F32)
 
     state = (torch.zeros((bsz, h, p, n), dtype=F32, device=x.device)
              if init_state is None else init_state.to(F32))
@@ -99,20 +107,22 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, init_state=None, scores=None):
     # intra-chunk (dual quadratic form)
     lmat = torch.exp(_segsum(cum.transpose(2, 3)))               # (B, C, H, L, L)
     if scores is None:
-        scores = torch.einsum("bcin,bcjn->bcij", cc, bc)         # (B, C, L, L)
-    m = scores[:, :, None] * lmat                                # (B, C, H, i, j)
+        scores = torch.einsum("bcign,bcjgn->bcgij", cc, bc)      # (B, C, G, L, L)
+    m = (scores[:, :, :, None] * lmat.unflatten(2, (g, -1))).flatten(2, 3)  # (B, C, H, i, j)
     xdt = xc * dtc[..., None]                                    # (B, C, L, H, P)
     y_intra = torch.einsum("bchij,bcjhp->bcihp", m, xdt)
     # each chunk's own contribution to the state at its end
     decay_out = torch.exp(cum[:, :, -1:, :] - cum)               # (B, C, L, H)
-    new_state = torch.einsum("bclh,bcln,bclhp->bchpn", decay_out * dtc, bc, xc)
+    new_state = torch.einsum("bclgk,bclgn,bclgkp->bcgkpn", (decay_out * dtc).unflatten(3, (g, -1)),
+                             bc, xc.unflatten(3, (g, -1))).flatten(2, 3)
     chunk_decay = torch.exp(cum[:, :, -1])[..., None, None]     # (B, C, H, 1, 1)
     entering = []
     for ci in range(nc):
         entering.append(state)
         state = chunk_decay[:, ci] * state + new_state[:, ci]
     # inter-chunk (incoming state)
-    y_inter = torch.einsum("bcin,bchpn->bcihp", cc, torch.stack(entering, dim=1))
+    y_inter = torch.einsum("bcign,bcgkpn->bcigkp", cc,
+                           torch.stack(entering, dim=1).unflatten(2, (g, -1))).flatten(3, 4)
     y_inter = y_inter * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).to(x.dtype).reshape(bsz, s, h, p)
     return y, state
@@ -133,13 +143,18 @@ def ssd_sequential(x, dt, a, b, c, init_state=None):
 
 def ssd_decode_step(state, xt, dtt, a, bt, ct):
     """One-token recurrence.  state: (B,H,P,N); xt: (B,H,P); dtt: (B,H);
-    bt, ct: (B,N).  Returns (new_state, y_t (B,H,P))."""
+    bt, ct: (B,G,N), head h reading group h // (H/G) ((B,N) is one group).
+    Returns (new_state, y_t (B,H,P))."""
+    if bt.ndim == 2:
+        bt, ct = bt[:, None], ct[:, None]
+    g = bt.shape[1]
     dtf = dtt.to(F32)
     decay = torch.exp(dtf * a)                                   # (B, H)
-    upd = dtf[:, :, None, None] * bt.to(F32)[:, None, None, :] * xt.to(F32)[..., None]
-    state = decay[..., None, None] * state + upd
-    yt = torch.einsum("bn,bhpn->bhp", ct.to(F32), state)
-    return state, yt.to(xt.dtype)
+    upd = (dtf.unflatten(1, (g, -1))[..., None, None] * bt.to(F32)[:, :, None, None, :]
+           * xt.to(F32).unflatten(1, (g, -1))[..., None])        # (B, G, H/G, P, N)
+    state = decay[..., None, None] * state + upd.flatten(1, 2)
+    yt = torch.einsum("bgn,bgkpn->bgkp", ct.to(F32), state.unflatten(1, (g, -1)))
+    return state, yt.flatten(1, 2).to(xt.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +163,17 @@ def ssd_decode_step(state, xt, dtt, a, bt, ct):
 
 def _split_proj(proj, cfg: ModelConfig):
     di, h, n, _ = ssm_dims(cfg)
-    return torch.split(proj, [di, di, n, n, h], dim=-1)  # z, x, B, C, dt
+    gn = ssm_groups(cfg) * n
+    return torch.split(proj, [di, di, gn, gn, h], dim=-1)  # z, x, B, C, dt
+
+
+def gated_norm(p: RMSNorm, y, z, cfg: ModelConfig):
+    """RMSNorm(y * SiLU(z)) * scale, normalised over each B/C group's
+    d_inner / G channels (one group: the whole d_inner)."""
+    g = (y * F.silu(z.to(F32)).to(y.dtype)).to(F32)
+    g = g.reshape(*g.shape[:-1], ssm_groups(cfg), -1)
+    g = g * torch.rsqrt(g.square().mean(dim=-1, keepdim=True) + cfg.norm_eps)
+    return (g.reshape(y.shape) * p.scale.to(F32)).to(y.dtype)
 
 
 def _causal_conv(xbc, conv_w, conv_b, width: int):
@@ -197,7 +222,9 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, *, ssm_state=None, conv_state=Non
         conv_out = (torch.einsum("bwc,wc->bc", window, p.conv_w) + p.conv_b)[:, None, :]
         new_conv_state = window[:, 1:, :]
     conv_out = F.silu(conv_out.to(F32)).to(x.dtype)
-    xs, bs, cs = torch.split(conv_out, [di, n, n], dim=-1)
+    gn = ssm_groups(cfg) * n
+    xs, bs, cs = torch.split(conv_out, [di, gn, gn], dim=-1)
+    bs, cs = bs.unflatten(-1, (-1, n)), cs.unflatten(-1, (-1, n))  # (B, S, G, N)
 
     dt = torch.logaddexp(dt_raw.to(F32) + p.dt_bias, torch.zeros((), dtype=F32,
                                                                   device=x.device))
@@ -216,8 +243,7 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, *, ssm_state=None, conv_state=Non
             ssm_state, xh[:, 0], dt[:, 0], a, bs[:, 0], cs[:, 0])
         y = yt[:, None]
     y = y + p.D[None, None, :, None].to(y.dtype) * xh
-    y = y.reshape(bsz, s, di)
-    y = rmsnorm(p.norm, y * F.silu(z.to(F32)).to(y.dtype), cfg.norm_eps)
+    y = gated_norm(p.norm, y.reshape(bsz, s, di), z, cfg)
     return y @ p.out_proj, new_state, new_conv_state
 
 
@@ -239,6 +265,10 @@ class _HeadShards:
     rank's slice is gathered whole, each reader's gradient a partial sum."""
 
     def __init__(self, p: Mamba, x, cfg: ModelConfig):
+        if ssm_groups(cfg) > 1:
+            raise NotImplementedError(
+                f"the mamba block on DTensors holds one B/C group; {cfg.name} has "
+                f"{ssm_groups(cfg)}: run it on one card")
         self.p, self.cfg = p, cfg
         self.mesh = mesh = x.device_mesh
         names = mesh.mesh_dim_names
@@ -382,10 +412,10 @@ class _HeadShards:
             if self.ways > 1 and n % self.ways == 0:
                 # C·Bᵀ over this rank's slice of the state, all-reduced
                 st, nc = self.share(n), s // chunk
-                part = torch.einsum("bcin,bcjn->bcij",
-                                    cs[..., st].to(F32).reshape(bsz_l, nc, chunk, -1),
-                                    bs[..., st].to(F32).reshape(bsz_l, nc, chunk, -1))
-                scores = self.reduce(part, (bsz, nc, chunk, chunk))
+                part = torch.einsum("bcign,bcjgn->bcgij",
+                                    cs[..., st].to(F32).reshape(bsz_l, nc, chunk, 1, -1),
+                                    bs[..., st].to(F32).reshape(bsz_l, nc, chunk, 1, -1))
+                scores = self.reduce(part, (bsz, nc, 1, chunk, chunk))
             y, state = ssd_chunked(xh, dt, a, bs, cs, chunk, scores=scores)
         else:
             state_in = self.local(ssm_state)[:, hs]

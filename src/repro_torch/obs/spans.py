@@ -15,7 +15,8 @@ wire formats cannot drift apart.
 ``SpanRecorder`` times the data plane from inside: each
 ``DataplaneRuntime`` holds one as ``rt.spans``, and its hot path opens a
 named span around each part of the arrival edge and the tick (the ``dp.``
-names, ``SPAN_NAMES``).  Off by default, a span site costs one attribute
+names, ``SPAN_NAMES``); each ``ServeEngine`` holds one as ``eng.spans``
+(the ``serve.`` names, ``SERVE_SPAN_NAMES``).  Off by default, a span site costs one attribute
 check and returns a shared no-op context.  ``start()`` clears the buffer
 and turns it on: each span then records its name, its start and end on
 ``time.perf_counter_ns`` (the clock of ``Telemetry`` and the rings'
@@ -49,9 +50,21 @@ SPAN_NAMES = (
     "dp.retire.account",    # telemetry, ring completion, audit, record, deltas
 )
 
+#: The serving engine's spans, parent before child (``ServeEngine``; the
+#: last two inside the ``zamba2`` family's decode step).
+SERVE_SPAN_NAMES = (
+    "serve.admit",          # ServeEngine._admit: deadlines, prefills, splices
+    "serve.prefill",        # one request's bucketed prefill; rows, padded
+    "serve.splice",         # its state written into the batch row; nbytes
+    "serve.decode",         # one decode step; rows, kv_resident, kv_valid
+    "serve.decode.mamba",   # one mamba layer of the step
+    "serve.decode.shared",  # one hybrid site: a shared block and its linear
+    "serve.retire",         # next tokens appended, finished rows freed
+)
+
 #: The counts a span may carry, summed per name by ``summary()``.
 COUNT_KEYS = ("rows", "padded", "nbytes", "admitted", "dropped", "epochs",
-              "queues")
+              "queues", "kv_resident", "kv_valid")
 
 
 class _NoSpan:
@@ -66,7 +79,8 @@ class _NoSpan:
         return False
 
     def count(self, rows=None, padded=None, nbytes=None, admitted=None,
-              dropped=None, epochs=None, queues=None):
+              dropped=None, epochs=None, queues=None, kv_resident=None,
+              kv_valid=None):
         pass
 
 
@@ -107,10 +121,12 @@ class _Span:
         return False
 
     def count(self, rows=None, padded=None, nbytes=None, admitted=None,
-              dropped=None, epochs=None, queues=None):
+              dropped=None, epochs=None, queues=None, kv_resident=None,
+              kv_valid=None):
         """Add to this span's counts (``COUNT_KEYS``; None: not given).  The
         counts stay a tuple here; ``summary()`` folds them."""
-        add = (rows, padded, nbytes, admitted, dropped, epochs, queues)
+        add = (rows, padded, nbytes, admitted, dropped, epochs, queues,
+               kv_resident, kv_valid)
         c = self.counts
         self.counts = add if c is None else tuple(
             b if a is None else a if b is None else a + b

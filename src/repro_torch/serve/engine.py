@@ -27,11 +27,22 @@ The engine runs on its device (the card unless the caller asks for
 another; the params must live there).  Host state (``tokens``,
 ``lengths``, ``slot_ids``, ``active``) stays in NumPy: each tick copies it
 to the device once and reads the next tokens back once.
+
+``spans`` (``repro_torch.obs.spans.SpanRecorder``, off until
+``spans.start()``) times a tick from inside: ``serve.admit``,
+``serve.prefill`` (one a request; ``rows`` 1, ``padded`` the bucket's pad
+tokens), ``serve.splice`` (``nbytes`` of state written into the batch),
+``serve.decode`` (``rows`` active; where the cache holds KV,
+``kv_resident`` and ``kv_valid``: the positions it holds for those rows
+and the positions valid after the step's write) and ``serve.retire``;
+the ``zamba2`` family opens ``serve.decode.mamba`` and
+``serve.decode.shared`` inside its step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Optional
 
@@ -41,6 +52,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import api
+from repro_torch.obs.spans import SpanRecorder
 
 
 @dataclasses.dataclass
@@ -96,8 +108,17 @@ class ServeEngine:
         self.eos_token = eos_token
         self.routed = cfg.bank_mode in ("adapter", "head")
 
+        # the cache takes its whole size at once: what unreachable objects
+        # (reference cycles) still hold on the device is freed first.
+        # Temporary: the benchmark's serving runner draws the weights in a
+        # recursive closure (``make_weights``) that keeps its 14.7 GB of
+        # Zamba2-7B drawn tensors on the card until a collection; this line
+        # goes once that closure no longer holds them.
+        gc.collect()
         with torch.inference_mode():
             self.cache = api.init_cache(cfg, max_batch, max_seq, device=self.device)
+        self.kv_len = _kv_len(self.cache)                  # positions a KV row holds
+        self.spans = SpanRecorder()
         self.tokens = np.zeros((max_batch,), np.int32)     # last token per row
         self.lengths = np.zeros((max_batch,), np.int32)    # context length
         self.slot_ids = np.zeros((max_batch,), np.int32)
@@ -119,9 +140,10 @@ class ServeEngine:
         state = torch.from_numpy(
             np.stack([self.tokens, self.lengths, self.slot_ids])).to(self.device)
         tokens, lengths, slot_ids = state.long()
+        inner = {"spans": self.spans} if self.spans.on else {}
         logits, self.cache = api.decode_step(
             self.params, tokens[:, None], self.cache, lengths, self.cfg,
-            slot_ids if self.routed else None)
+            slot_ids if self.routed else None, **inner)
         return torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
 
     @torch.inference_mode()
@@ -196,11 +218,19 @@ class ServeEngine:
 
     def _prefill_into_row(self, req: Request, row: int):
         bucket = _bucket(len(req.prompt), self.buckets)
-        nxt, row_cache = self._prefill(bucket, req.prompt, req.slot_id)
+        sp = self.spans
+        with sp.span("serve.prefill") as s:
+            if sp.on:
+                s.count(rows=1, padded=bucket - len(req.prompt))
+            nxt, row_cache = self._prefill(bucket, req.prompt, req.slot_id)
         # NOTE: bucket padding attends over pad tokens to the right of the
         # prompt; the splice copies the first min(bucket, cache length)
-        # positions, as the reference's does.
-        self._splice_cache(row, row_cache)
+        # positions, as the reference's does.  Decode reads a row's KV only
+        # below its length, which its own writes fill past the prompt.
+        with sp.span("serve.splice") as s:
+            if sp.on:
+                s.count(nbytes=_nbytes(row_cache))
+            self._splice_cache(row, row_cache)
         self.active[row] = True
         self.lengths[row] = len(req.prompt)
         self.tokens[row] = nxt
@@ -229,17 +259,26 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def step(self) -> int:
         """One engine tick; returns number of active rows decoded."""
-        self._admit()
+        sp = self.spans
+        with sp.span("serve.admit"):
+            self._admit()
         if not self.active.any():
             self.ticks += 1
             return 0
-        nxt = self._decode()
-        for row in range(self.max_batch):
-            if self.active[row]:
-                self.lengths[row] += 1
-                self.tokens[row] = nxt[row]
-                self.row_out[row].append(int(nxt[row]))
-        self._retire()
+        with sp.span("serve.decode") as s:
+            if sp.on:
+                rows = int(self.active.sum())
+                valid = np.minimum(self.lengths[self.active] + 1, self.kv_len)
+                s.count(rows=rows, kv_resident=rows * self.kv_len or None,
+                        kv_valid=int(valid.sum()) if self.kv_len else None)
+            nxt = self._decode()
+        with sp.span("serve.retire"):
+            for row in range(self.max_batch):
+                if self.active[row]:
+                    self.lengths[row] += 1
+                    self.tokens[row] = nxt[row]
+                    self.row_out[row].append(int(nxt[row]))
+            self._retire()
         self.ticks += 1
         return int(self.active.sum())
 
@@ -247,6 +286,27 @@ class ServeEngine:
         while (self.waiting or self.active.any()) and self.ticks < max_ticks:
             self.step()
         return self.finished
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for key, v in tree.items():
+            yield from ((f"{key}/{n}" if n else key, t) for n, t in _leaves(v))
+    else:
+        yield "", tree
+
+
+def _kv_len(cache) -> int:
+    """Positions a row of the cache's KV holds (0: the cache holds none)."""
+    for name, t in _leaves(cache):
+        if name.split("/")[-1] == "k":
+            return int(t.shape[-2])
+    return 0
+
+
+def _nbytes(cache) -> int:
+    """Bytes of a cache tree's leaves."""
+    return sum(t.numel() * t.element_size() for _, t in _leaves(cache))
 
 
 def _batch_dim(name: str, ndim: int) -> int:
