@@ -43,6 +43,13 @@ Phases, in order; any failure raises and exits non-zero:
      bf16: one bf16 ulp of the result plus the worst-case f32 bound
      2 gamma(n) (|x| |W| + |b|), gamma(n) = n u / (1 - n u), where
      cancellation makes the f32 sums differ by more than an ulp);
+   * ``banked_matmul``'s ``bf16/wgmma.f32out`` as the banked LM head
+     (``models.lm.banked_logits``) runs it in ``mamba2-130m-h4.chat-sat``:
+     a decode step of 256 rows over 4 slots and a 512-token prefill on one,
+     grouped by ``lm.group_head_rows``, D 768, H 50,288, bf16 operands, f32
+     out, no bias: within 2 gamma(D) |x| |W| of its plain version (the
+     line's ``call_ms`` is the whole head: grouping, kernel, row order and
+     vocabulary mask);
    * ``double_buffered_forward`` (a case of the fused kernel) at H32,
      K = 16 + 16, gather mode, ``meta_words=16`` with actions: equal to
      ``fused_forward`` on the front or back bank bit for bit;
@@ -196,8 +203,8 @@ Phases, in order; any failure raises and exits non-zero:
    ``fig8_dataplane``, ``fig9_control``, ``fig11_workloads`` and
    ``fig15_swap`` once each (``cli_figures``);
 9. serves LMs on the card (``run_lm_serve_phase``), each part with the
-   launch counts set to 0 around it and failing if any BNN kernel was
-   launched (the LM path reaches none): (a) smollm-360m at its published
+   launch counts set to 0 around it and failing if any kernel of the port
+   was launched but (h)'s head: (a) smollm-360m at its published
    width and depth in f32 (random weights, ``api.init`` seed 0) through
    ``ServeEngine(max_batch=8, max_seq=512)``, 8 requests of 4-48 prompt
    tokens and 8 new tokens, each output held against the card's own
@@ -215,7 +222,11 @@ Phases, in order; any failure raises and exits non-zero:
    prompts past one 256-token SSD chunk, against greedy as in (a); (f)
    every other arch of ``ARCH_IDS`` (but the encoder-decoder) at
    ``reduced()`` in f32 (MoE at capacity factor 16), one engine run each
-   against greedy; (g) ``python -m repro_torch.launch.serve`` in three
+   against greedy; (h) mamba2-130m in bf16 with a bank of 4 output heads
+   through ``ServeEngine(max_batch=256, max_seq=1536)``, 12 requests of
+   20, 100 and 400 prompt tokens: ``bf16/wgmma.f32out`` launched once a
+   decode step and once a prefill (as the engine's spans count them), each
+   counted into phase 3's head rows; (g) ``python -m repro_torch.launch.serve`` in three
    subprocesses at once: its defaults and ``--arch mamba2-130m`` print the
    ``served`` and ``latency`` lines and exit 0, ``--arch
    seamless-m4t-medium`` exits non-zero, as the reference's does;
@@ -310,6 +321,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -1247,12 +1259,33 @@ LM_NEW = 8                         # new tokens per request
 LM_SSM_LONG = (300, 450)           # (d)'s prompts past one 256-token SSD chunk
 LM_INT8_STEPS, LM_INT8_REL = 10, 0.05   # (e): the reference's bound (test_int8_cache.py)
 LM_PROFILE_NEW = 100               # (b)'s profiled engine: rows stay active
+# The banked head as mamba2-130m-h4.chat-sat serves it (phase 3's head rows
+# and (h)): HEAD_SLOTS output heads, a decode step of HEAD_ROWS rows, the
+# engine's prefill buckets, HEAD_PREFILL the largest
+HEAD_SLOTS, HEAD_ROWS, HEAD_SEQ = 4, 256, 1536
+HEAD_BUCKETS = (32, 128, 512)
+HEAD_PREFILL = HEAD_BUCKETS[-1]
+HEAD_PROMPTS = (20, 100, 400)      # (h)'s prompt lengths, one per bucket, in turn
+HEAD_REQUESTS = 12                 # (h)'s requests, slots in turn
+HEAD_KEY = "bf16/wgmma.f32out/head"  # banked_matmul.launches of the grouped head
 
 
-def run_lm_serve_phase(*, counted, dev, out) -> None:
-    """Phase 9 (a to g of the module docstring): the LM serving path on the
-    card, each part with the BNN kernels' launch counts set to 0 around it
-    (the serving path launches none of them)."""
+def head_config():
+    """mamba2-130m as ``mamba2-130m-h4`` serves it: the published
+    vocabulary of 50,277 padded to a multiple of 16, and a bank of
+    HEAD_SLOTS output heads."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(SSM_ARCH), vocab_size=50277, vocab_pad_multiple=16,
+                               bank_mode="head", bank_slots=HEAD_SLOTS)
+
+
+def run_lm_serve_phase(*, counted, entries, dev, out) -> None:
+    """Phase 9 (a to h of the module docstring): the LM serving path on the
+    card, each part with the launch counts set to 0 around it (the serving
+    path launches no BNN kernel; (h)'s banked head launches ``banked_matmul``
+    under HEAD_KEY, counted into phase 3's head rows of ``entries``)."""
     import dataclasses
     import math
 
@@ -1260,14 +1293,18 @@ def run_lm_serve_phase(*, counted, dev, out) -> None:
     import torch
 
     from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.kernels import banked_matmul as bm
     from repro_torch.models import api
     from repro_torch.serve.engine import Request, ServeEngine
 
-    def part(label, fn):
+    def part(label, fn, allow=()):
+        """``fn`` with the counts set to 0 around it; no kernel launched but
+        the ``banked_matmul`` keys in ``allow``."""
         result, n = counted(fn)
+        n["banked_matmul"] = {k: v for k, v in n["banked_matmul"].items() if k not in allow}
         launched = {k: v for k, v in n.items() if v}
         if launched:
-            fail(f"lm_serve {label}: BNN kernels launched on the LM path: {launched}")
+            fail(f"lm_serve {label}: kernels launched on the LM path: {launched}")
         return result
 
     def requests(cfg, seed, lengths=None, n=LM_BATCH, new=LM_NEW):
@@ -1278,10 +1315,12 @@ def run_lm_serve_phase(*, counted, dev, out) -> None:
         return [(rng.integers(0, cfg.vocab_size, m).tolist(), i % slots, new)
                 for i, m in enumerate(lengths)]
 
-    def serve(params, cfg, reqs, **kw):
+    def serve(params, cfg, reqs, record=False, **kw):
         eng = ServeEngine(params, cfg, device=dev, **kw)
         for i, (prompt, slot, new) in enumerate(reqs):
             eng.submit(Request(rid=i, prompt=prompt, slot_id=slot, max_new_tokens=new))
+        if record:
+            eng.spans.start()
         fins = eng.run_until_done()
         torch.cuda.synchronize()
         if len(fins) != len(reqs) or any(f.rejected for f in fins):
@@ -1496,6 +1535,37 @@ def run_lm_serve_phase(*, counted, dev, out) -> None:
             runs[arch] = check_greedy(f"f {arch} reduced", params, cfg, reqs, outs)
         return runs
     res["f_reduced"] = part("f", f)
+
+    # h. mamba2-130m in its published bf16 with chat-sat's bank of output
+    # heads and engine shape: the head grouped by slot on bf16/wgmma.f32out,
+    # one launch a decode step (HEAD_ROWS rows) and one a prefill
+    def h():
+        cfg = head_config()
+        params = held["head"] = api.init(0, cfg, device=dev)
+        reqs = [(q[0], i % HEAD_SLOTS, q[2]) for i, q in enumerate(requests(
+            cfg, 8, [HEAD_PROMPTS[i % len(HEAD_PROMPTS)] for i in range(HEAD_REQUESTS)],
+            n=HEAD_REQUESTS))]
+        t0 = time.perf_counter()
+        _, eng = serve(params, cfg, reqs, record=True, max_batch=HEAD_ROWS,
+                       max_seq=HEAD_SEQ, prefill_buckets=HEAD_BUCKETS)
+        spans = eng.spans.summary()
+        launches = bm.banked_matmul.launches[HEAD_KEY]
+        r = {"requests": len(reqs), "decode_steps": spans["serve.decode"]["count"],
+             "prefills": spans["serve.prefill"]["count"], "head_launches": launches,
+             "head_spans": spans["serve.decode.head"]["count"],
+             "head_rows": spans["serve.decode.head"]["rows"],
+             "head_padded_rows": spans["serve.decode.head"]["padded"],
+             "wall_s": time.perf_counter() - t0}
+        if r["prefills"] != len(reqs) or launches != r["decode_steps"] + r["prefills"] \
+                or r["head_spans"] != r["decode_steps"]:
+            fail(f"lm_serve h: the grouped head ran {launches} times for "
+                 f"{r['decode_steps']} decode steps and {r['prefills']} prefills: {r}")
+        entries["mm/bf16.f32out/head"]["launches"] += r["decode_steps"]
+        entries["mm/bf16.f32out/head/prefill"]["launches"] += r["prefills"]
+        print(f"lm_serve h mamba2-130m bf16 head bank: {r}", flush=True)
+        return r
+    res["h_head_bank"] = part("h", h, allow=(HEAD_KEY,))
+    free("head")
 
     # g. the shell entry point: defaults, mamba2-130m, and seamless (fails)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -2469,6 +2539,67 @@ def main() -> int:
                run_k, run_p, b_ms, b_by, library=library)
         entries[f"mm/{tname}"]["variant"] = MM_VARIANT[tname]
 
+    # The banked LM head (``models.lm.banked_logits``) on ``bf16/wgmma.f32out``
+    # at chat-sat's shapes: a decode step's HEAD_ROWS rows, slots uniform
+    # over HEAD_SLOTS, and a HEAD_PREFILL-token prompt on one slot, each
+    # grouped as the head groups them (``lm.group_head_rows``); bf16
+    # operands, f32 out, no bias.  The kernel within 2 gamma(D) sum|terms| of
+    # its plain version (the same exact products summed in f32 in two
+    # orders); "call" the whole head (grouping, kernel, row order, mask),
+    # "library" one ``torch.bmm`` over each block's slot with an f32 output.
+    from repro_torch.models import lm
+    head_cfg = head_config()
+    hd, hv = head_cfg.d_model, head_cfg.padded_vocab
+    if bm.matmul_variant(torch.bfloat16, hd, hv, out_dtype=torch.float32) != \
+            "bf16/wgmma.f32out":
+        fail("banked_matmul: the head's shape would not take bf16/wgmma.f32out")
+    hgen = torch.Generator(device=dev).manual_seed(43)
+    head_bank = types.SimpleNamespace(w=(torch.randn(
+        (HEAD_SLOTS, hd, hv), generator=hgen, device=dev) * hd ** -0.5).to(torch.bfloat16))
+    gamma_head = hd * F32_UNIT_ROUNDOFF / (1 - hd * F32_UNIT_ROUNDOFF)
+    hrng = np.random.default_rng(HEAD_ROWS)
+    for key, rows, t, slot_np in (
+            ("mm/bf16.f32out/head", HEAD_ROWS, 1, hrng.integers(0, HEAD_SLOTS, HEAD_ROWS)),
+            ("mm/bf16.f32out/head/prefill", 1, HEAD_PREFILL, np.array([1]))):
+        x_h = torch.randn((rows, t, hd), generator=hgen, device=dev).to(torch.bfloat16)
+        ids_h = torch.from_numpy(slot_np).to(dev)
+        slots_h = ids_h[:, None].expand(rows, t).reshape(-1)
+        g_h, bs_h = lm.group_head_rows(slots_h, HEAD_SLOTS)
+        xs_h = bank_lib.scatter_padded(x_h.reshape(-1, hd), g_h)
+        kw_h = dict(block_b=lm.HEAD_BLOCK_B, out_dtype=torch.float32)
+        run_k = lambda: bm.banked_matmul(xs_h, head_bank.w, None, bs_h, **kw_h)  # noqa: E731
+        run_p = lambda: bm.banked_matmul_ref(xs_h, head_bank.w, None, bs_h, **kw_h)  # noqa: E731
+        got, want = run_k(), run_p()
+        absref = bm.banked_matmul_ref(xs_h.abs(), head_bank.w.abs(), None, bs_h, **kw_h)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        allowed = 2 * gamma_head * absref * 1.01  # 1.01: absref's own rounding
+        if bool((diff > allowed).any()):
+            fail(f"banked_matmul head {key}: {int((diff > allowed).sum())} elements beyond "
+                 f"the tolerance (max err {float(diff.max())})")
+        err = float(diff.max())
+        print(f"banked_matmul head {key}: max_abs_err={err:.3g} max err/tolerance="
+              f"{float((diff / allowed.clamp_min(1e-30)).max()):.3g}", flush=True)
+        del want, absref, diff, allowed
+
+        def head_call(x_h=x_h, ids_h=ids_h):
+            with torch.inference_mode():
+                return lm.banked_logits(head_bank, x_h, head_cfg, ids_h)
+
+        nb_h = g_h.b_pad // lm.HEAD_BLOCK_B
+        library = lambda: torch.bmm(  # noqa: E731
+            xs_h.view(nb_h, lm.HEAD_BLOCK_B, hd), head_bank.w[bs_h.long()],
+            out_dtype=torch.float32)
+        n_h = rows * t
+        b_ms, b_by = bound(used_slots(bs_h) * hd * hv * 2 + n_h * hd * 2 + n_h * hv * 4
+                           + nbytes(bs_h), 0.0, 0.0, bf16_ops=2.0 * n_h * hd * hv)
+        kind = "decode step" if t == 1 else f"{t}-token prefill"
+        record(key, f"banked_matmul bf16 to f32 head, {kind}: {n_h} rows in {g_h.b_pad} "
+               f"grouped, {hd}x{hv}, K={HEAD_SLOTS}",
+               "src/repro_torch/kernels/csrc/banked_matmul.cu",
+               "src/repro/models/lm.py:250", err, run_k, run_p, b_ms, b_by, call=head_call, library=library)
+        entries[key]["variant"] = "bf16/wgmma.f32out"
+
     g_db = bank_lib.group_by_slot_padded(pkt.slot_of(x_db, K_DB), K_DB, BLOCK_B)
     kw_db = dict(block_b=BLOCK_B, meta_words=16, with_actions=True)
     both_args = (both["w1p"], both["b1"], both["w2"], both["b2"])
@@ -2902,7 +3033,9 @@ def main() -> int:
     end_to_end["mesh"] = mesh_out
 
     for key, e in entries.items():
-        if e["launches"] < 1 and not key.endswith(f"/bb{CLI_BLOCK_B}"):  # phase 8's
+        # phase 8's rows and phase 9's head rows are counted there
+        if e["launches"] < 1 and not key.endswith(f"/bb{CLI_BLOCK_B}") \
+                and not key.startswith("mm/bf16.f32out/head"):
             fail(f"{e['name']} was not launched on the main path")
 
     # -- 5. where the time goes -----------------------------------------------
@@ -3034,7 +3167,7 @@ def main() -> int:
 
     # -- 9. LM serving ------------------------------------------------------------
     lm_out = {}
-    run_lm_serve_phase(counted=counted, dev=dev, out=lm_out)
+    run_lm_serve_phase(counted=counted, entries=entries, dev=dev, out=lm_out)
     end_to_end["lm_serve"] = {k: lm_out[k] for k in ("a_smollm_f32", "b_smollm_bf16",
                                                     "d_mamba2_f32")}
 

@@ -60,9 +60,10 @@ SIGNATURES = {
         _P,                  # stream
     ]),
     "banked_matmul": ("banked_matmul_launch", [
-        _P, _P, _P, _P, _P,  # x, w, b, block_slots, out
+        _P, _P, _P, _P, _P,  # x, w, b (NULL for variant 3 alone), block_slots, out
         _I, _I, _I, _I, _I,  # n_blocks, block_b, D, H, num_slots
-        _I, _P,              # variant (0 f32/fma, 1 bf16/fma, 2 bf16/wgmma), stream
+        _I, _P,              # variant (0 f32/fma, 1 bf16/fma, 2 bf16/wgmma,
+                             # 3 bf16/wgmma.f32out), stream
     ]),
 }
 

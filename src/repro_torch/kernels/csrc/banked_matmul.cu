@@ -8,12 +8,16 @@
 // nearest even).  Every CTA's row tile lies inside one block, so a CTA reads
 // one slot id and only that slot's weights.
 //
+// bf16/wgmma.f32out takes no bias (b NULL); every other variant takes one.
+//
 // Bound.  2 B D H operations and (B D + D H per used slot + B H) elements
 // moved.  At the LM width (B = 8192, D = H = 960) bf16 is bound by the dense
 // bf16 tensor rate (0.0153 ms at 989 TFLOP/s) and f32 by the non-tensor f32
-// rate (0.225 ms at 67 TFLOP/s).
+// rate (0.225 ms at 67 TFLOP/s).  The banked head (B = 256 rows over four
+// slots, D = 768, H = 50,288, f32 out) is bound by its bytes: four slots and
+// the f32 logits, 0.36 GB, 0.108 ms at 3.35 TB/s.
 //
-// Three kernels, picked per call by a shape rule before launch
+// Four kernels, picked per call by a shape rule before launch
 // (repro_torch.kernels.banked_matmul.matmul_variant):
 //
 // * bf16/wgmma (bf16, D and H multiples of 8, 16-byte aligned bases): a
@@ -30,6 +34,20 @@
 //   waves); 192 columns measured faster there than 128, and 4 stages
 //   faster than 3 or 5.  It replaces a 64 x 64 FMA tile that widened bf16
 //   to f32 and never touched a tensor core.
+// * bf16/wgmma.f32out: the same kernel writing the f32 sums unrounded: the
+//   banked LM head (repro_torch.models.lm.banked_logits), bf16 operands, f32
+//   accumulation and output, as the reference's einsum with
+//   preferred_element_type=float32.  Its shape is the other extreme: few
+//   rows (a decode step's rows grouped by slot, blocks of kHeadRows) against
+//   a wide W[s] (D = 768, H = 50,288 for mamba2-130m), so it is bound by
+//   reading each used slot once (77.2 MB each).  A CTA takes kHeadRows = 64
+//   rows, one consumer warpgroup, so that a 64-row block computes no row of
+//   the next one.  The CTAs of one column tile are launched together
+//   (blockIdx.x walks the blocks), so blocks of one slot read that slot's
+//   columns from L2 after the first.  Measured on the H100 at 256 decode rows
+//   in blocks of 64: 64 rows and 4 stages 0.173 ms, as fast as 3 stages (two
+//   CTAs an SM) and faster at a 512-token prefill; 128 rows 8 % slower at
+//   blocks of 128, 32-row blocks 20 % slower (PERF.md, kernel table).
 // * f32/fma: exact f32, one FMA per product in order of k (TF32 tensor
 //   cores would break the f32 limit chip_smoke.py holds it to).  128 x 128
 //   CTA tiles, 8 x 8 outputs per thread read as float4 from shared memory
@@ -44,6 +62,8 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -286,16 +306,26 @@ fma_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // bf16/wgmma: TMA ring + two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int kWM = 128;             // rows per CTA: two warpgroups of 64
 constexpr int kWK = 64;              // k per stage: one 128-byte swizzle row
 constexpr int kWN = 192;             // columns per CTA: three 64-column boxes
-constexpr int kStages = 4;
-constexpr int kConsumers = 256;      // two warpgroups
-constexpr int kWThreads = kConsumers + 32;  // + one producer warp
-constexpr int kABytes = kWM * kWK * 2;      // 16 KB per stage
 constexpr int kAtomBytes = kWK * 64 * 2;    // one 64-column box of W: 8 KB
 constexpr int kBBytes = kWN / 64 * kAtomBytes;
-constexpr int kWSmem = kStages * (kABytes + kBBytes) + 2 * kStages * 8 + 1024;
+// bf16/wgmma: 128 rows (two consumer warpgroups), 4 stages
+constexpr int kWM = 128;
+constexpr int kStages = 4;
+// bf16/wgmma.f32out (the banked head): 64 rows (one warpgroup), 4 stages
+constexpr int kHeadRows = 64;
+constexpr int kHeadStages = 4;
+
+// The tile of a CTA with kRows rows (kRows / 64 consumer warpgroups and one
+// producer warp) and kSt stages.
+template <int kRows, int kSt>
+struct WgmmaTile {
+  static constexpr int kConsumers = kRows * 2;          // 128 threads per 64 rows
+  static constexpr int kThreads = kConsumers + 32;      // + one producer warp
+  static constexpr int kABytes = kRows * kWK * 2;       // x: 8 KB per 64 rows a stage
+  static constexpr int kSmem = kSt * (kABytes + kBBytes) + 2 * kSt * 8 + 1024;
+};
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
@@ -372,32 +402,44 @@ __device__ __forceinline__ void wgmma_n192(float (&d)[96], uint64_t da, uint64_t
       : "l"(da), "l"(db), "n"(1));
 }
 
-// One CTA: rows [r0, min(r0 + 128, block end)) of one block, columns
-// [n0, n0 + 192).  Stage st holds x rows r0.. (128 x 64, K-major) and W[s]
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// One CTA: rows [r0, min(r0 + kRows, block end)) of one block, columns
+// [n0, n0 + 192).  Stage st holds x rows r0.. (kRows x 64, K-major) and W[s]
 // rows k0.. as three boxes of 64 x 64 (N-major), all 128-byte swizzled.
-__global__ void __launch_bounds__(kWThreads)
+// OutT: bf16 (bias added, rounded once) or float (the sums as they are, no
+// bias: the banked head).
+template <int kRows, int kSt, typename OutT>
+__global__ void __launch_bounds__(WgmmaTile<kRows, kSt>::kThreads)
 wgmma_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
                   const __grid_constant__ CUtensorMap w_map,
                   const __nv_bfloat16* __restrict__ b,
                   const int32_t* __restrict__ block_slots,
-                  __nv_bfloat16* __restrict__ out, int block_b, int tiles_per_block,
+                  OutT* __restrict__ out, int block_b, int tiles_per_block,
                   int D, int H, int num_slots) {
+  using Tile = WgmmaTile<kRows, kSt>;
+  constexpr int kConsumers = Tile::kConsumers, kABytes = Tile::kABytes;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t a_smem = base;                           // kStages x kABytes
-  const uint32_t b_smem = base + kStages * kABytes;       // kStages x kBBytes
-  const uint32_t full_bar = b_smem + kStages * kBBytes;   // kStages x 8 B
-  const uint32_t empty_bar = full_bar + kStages * 8;
+  const uint32_t a_smem = base;                           // kSt x kABytes
+  const uint32_t b_smem = base + kSt * kABytes;           // kSt x kBBytes
+  const uint32_t full_bar = b_smem + kSt * kBBytes;       // kSt x 8 B
+  const uint32_t empty_bar = full_bar + kSt * 8;
 
   const int blk = blockIdx.x / tiles_per_block;
-  const int r0 = blk * block_b + (blockIdx.x % tiles_per_block) * kWM;
-  const int r_end = min(r0 + kWM, (blk + 1) * block_b);
+  const int r0 = blk * block_b + (blockIdx.x % tiles_per_block) * kRows;
+  const int r_end = min(r0 + kRows, (blk + 1) * block_b);
   const int n0 = blockIdx.y * kWN;
   const int s = min(max(block_slots[blk], 0), num_slots - 1);
   const int k_tiles = (D + kWK - 1) / kWK;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kStages; ++i) {
+    for (int i = 0; i < kSt; ++i) {
       mbar_init(full_bar + 8 * i, 1);
       mbar_init(empty_bar + 8 * i, kConsumers);
     }
@@ -409,8 +451,8 @@ wgmma_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
     // Producer warp: one lane keeps the ring full.
     if (threadIdx.x == kConsumers) {
       for (int kt = 0; kt < k_tiles; ++kt) {
-        const int st = kt % kStages;
-        mbar_wait(empty_bar + 8 * st, ((kt / kStages) & 1) ^ 1);
+        const int st = kt % kSt;
+        mbar_wait(empty_bar + 8 * st, ((kt / kSt) & 1) ^ 1);
         mbar_expect_tx(full_bar + 8 * st, kABytes + kBBytes);
         tma_load_2d(a_smem + st * kABytes, &x_map, full_bar + 8 * st, kt * kWK, r0);
 #pragma unroll
@@ -428,8 +470,8 @@ wgmma_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
   for (int i = 0; i < kWN / 2; ++i) acc[i] = 0.f;
   for (int kt = 0; kt < k_tiles; ++kt) {
-    const int st = kt % kStages;
-    mbar_wait(full_bar + 8 * st, (kt / kStages) & 1);
+    const int st = kt % kSt;
+    mbar_wait(full_bar + 8 * st, (kt / kSt) & 1);
     const uint32_t a_st = a_smem + st * kABytes + wg * 64 * 128;
     const uint32_t b_st = b_smem + st * kBBytes;
     fence_operands(acc);
@@ -447,15 +489,19 @@ wgmma_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
   // Epilogue: register i holds row 16 w + lane/4 + 8 ((i/2) % 2), column
   // 8 (i/4) + 2 (lane % 4) + i % 2 of the warpgroup's 64 x 192 tile.
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-  const __nv_bfloat16* __restrict__ bs = b + (size_t)s * H;
 #pragma unroll
   for (int i = 0; i < kWN / 2; i += 2) {
     const int row = r0 + wg * 64 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
     const int col = n0 + 8 * (i / 4) + 2 * (lane % 4);
     if (row < r_end && col < H) {  // H is even, so col + 1 < H too
-      const __nv_bfloat162 bv = *reinterpret_cast<const __nv_bfloat162*>(bs + col);
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * H + col) = __floats2bfloat162_rn(
-          acc[i] + __bfloat162float(bv.x), acc[i + 1] + __bfloat162float(bv.y));
+      if constexpr (std::is_same_v<OutT, float>) {
+        store_pair(out + (size_t)row * H + col, acc[i], acc[i + 1]);
+      } else {
+        const __nv_bfloat162 bv = *reinterpret_cast<const __nv_bfloat162*>(
+            b + (size_t)s * H + col);
+        store_pair(out + (size_t)row * H + col, acc[i] + __bfloat162float(bv.x),
+                   acc[i + 1] + __bfloat162float(bv.y));
+      }
     }
   }
 }
@@ -503,28 +549,31 @@ bool make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dim
 // Returned in place of a cudaError_t when the driver cannot encode a map.
 constexpr int kErrTensorMap = -2;
 
+template <int kRows, int kSt, typename OutT>
 int launch_wgmma(const void* x, const void* w, const void* b, const void* block_slots,
                  void* out, int n_blocks, int block_b, int D, int H, int num_slots,
                  cudaStream_t stream) {
+  using Tile = WgmmaTile<kRows, kSt>;
   const int n_rows = n_blocks * block_b;
   CUtensorMap x_map, w_map;
   const cuuint64_t x_dims[2] = {(cuuint64_t)D, (cuuint64_t)n_rows};
   const cuuint64_t x_strides[1] = {(cuuint64_t)D * 2};
-  const cuuint32_t x_box[2] = {kWK, kWM};
+  const cuuint32_t x_box[2] = {kWK, kRows};
   const cuuint64_t w_dims[3] = {(cuuint64_t)H, (cuuint64_t)D, (cuuint64_t)num_slots};
   const cuuint64_t w_strides[2] = {(cuuint64_t)H * 2, (cuuint64_t)D * H * 2};
   const cuuint32_t w_box[3] = {64, kWK, 1};
   if (!make_map(&x_map, x, 2, x_dims, x_strides, x_box) ||
       !make_map(&w_map, w, 3, w_dims, w_strides, w_box))
     return kErrTensorMap;
-  cudaError_t err = cudaFuncSetAttribute(wgmma_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
+  const auto kernel = wgmma_bf16_kernel<kRows, kSt, OutT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Tile::kSmem);
   if (err != cudaSuccess) return err;
-  const int tiles_per_block = (block_b + kWM - 1) / kWM;
+  const int tiles_per_block = (block_b + kRows - 1) / kRows;
   const dim3 grid(n_blocks * tiles_per_block, (H + kWN - 1) / kWN);
-  wgmma_bf16_kernel<<<grid, kWThreads, kWSmem, stream>>>(
+  kernel<<<grid, Tile::kThreads, Tile::kSmem, stream>>>(
       x_map, w_map, static_cast<const __nv_bfloat16*>(b),
-      static_cast<const int32_t*>(block_slots), static_cast<__nv_bfloat16*>(out), block_b,
+      static_cast<const int32_t*>(block_slots), static_cast<OutT*>(out), block_b,
       tiles_per_block, D, H, num_slots);
   return cudaGetLastError();
 }
@@ -558,13 +607,14 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// variant: 0 = f32/fma, 1 = bf16/fma, 2 = bf16/wgmma (the wrapper's
-// matmul_variant picks it).
+// variant: 0 = f32/fma, 1 = bf16/fma, 2 = bf16/wgmma, 3 = bf16/wgmma.f32out
+// (the wrapper's matmul_variant picks it).
 extern "C" int banked_matmul_launch(
     const void* x, const void* w, const void* b, const void* block_slots,
     void* out, int n_blocks, int block_b, int D, int H, int num_slots,
     int variant, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if ((b == nullptr) != (variant == 3)) return cudaErrorInvalidValue;
   if (variant == 0) {
     const bool vec = D % 4 == 0 && H % 4 == 0 && aligned16(x) && aligned16(w) && aligned16(b);
     return launch_fma_f32(x, w, b, block_slots, out, n_blocks, block_b, D, H, num_slots,
@@ -572,8 +622,13 @@ extern "C" int banked_matmul_launch(
   }
   if (variant == 1)
     return launch_fma_bf16(x, w, b, block_slots, out, n_blocks, block_b, D, H, num_slots, st);
-  if (variant == 2 && D % 8 == 0 && H % 8 == 0 && aligned16(x) && aligned16(w))
-    return launch_wgmma(x, w, b, block_slots, out, n_blocks, block_b, D, H, num_slots, st);
+  if ((variant == 2 || variant == 3) && D % 8 == 0 && H % 8 == 0 && aligned16(x) &&
+      aligned16(w))
+    return variant == 2
+        ? launch_wgmma<kWM, kStages, __nv_bfloat16>(x, w, b, block_slots, out, n_blocks,
+                                                    block_b, D, H, num_slots, st)
+        : launch_wgmma<kHeadRows, kHeadStages, float>(x, w, b, block_slots, out, n_blocks,
+                                                      block_b, D, H, num_slots, st);
   return cudaErrorInvalidValue;
 }
 

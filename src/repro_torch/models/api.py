@@ -60,7 +60,7 @@ def decode_step(params, tokens, cache, cache_len, cfg: ModelConfig, slot_ids=Non
                 spans=None):
     """One token per row; the cache is written in place and returned.
     ``spans`` (a ``SpanRecorder``) times the layers where a family opens
-    spans inside its step (``zamba2``)."""
+    spans inside its step (``zamba2``) and the banked head."""
     if cfg.family == "encdec":
         return _encdec.encdec_decode_step(params, tokens, cache, cache_len, cfg,
                                           slot_ids)

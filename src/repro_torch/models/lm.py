@@ -47,6 +47,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import bank as bank_lib
+from repro_torch.kernels.banked_matmul import banked_matmul
 from repro_torch.nn import modules as nn
 from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import ssd as ssd_lib
@@ -298,17 +300,52 @@ def _embed_inputs(params: LM, batch, cfg: ModelConfig):
     return x
 
 
-def banked_logits(bank_head: nn.Weight, x, cfg: ModelConfig, slot_ids):
-    """The banked head: each row's (d, V) slot of the bank, f32 logits."""
-    w = nn.take_rows(bank_head.w, slot_ids)  # (B, d, V), V as the bank shards it
-    x = nn.whole_features(x)
-    return nn.mask_padded_vocab(torch.bmm(x.to(nn.F32), w.to(nn.F32)), cfg)
+# Rows a block of the grouped head: a slot's rows are padded to a multiple
+# of it, and one CTA of the kernel takes one block (PERF.md, kernel table).
+HEAD_BLOCK_B = 64
 
 
-def _final_logits(params, x, cfg, slot_ids=None):
+def group_head_rows(slots, num_slots: int):
+    """The grouping of the head's rows by slot in blocks of ``HEAD_BLOCK_B``
+    (``bank.group_by_slot_padded``) and the slot each block reads: the
+    blocks past the last slot's rows hold padding only and take that slot,
+    so that they read no other slot's weights."""
+    g = bank_lib.group_by_slot_padded(slots, num_slots, HEAD_BLOCK_B)
+    return g, torch.minimum(g.block_slots, slots.max().to(torch.int32))
+
+
+def banked_logits(bank_head: nn.Weight, x, cfg: ModelConfig, slot_ids, spans=None):
+    """The banked head: each row's (d, V) slot of the bank, f32 logits of
+    bf16 (or f32) products summed in f32, as the reference's einsum.
+
+    Where autograd records nothing, on plain tensors and a bf16 bank
+    (serving), the rows are grouped by slot and ``banked_matmul`` reads each
+    slot they use once, its f32 sums written as they are; under
+    ``serve.decode.head`` (``spans``: a ``SpanRecorder``, or None) with the
+    rows and the padding of their grouping.  Otherwise (training, a sharded
+    or an f32 bank) each row's slot is gathered and multiplied in f32."""
+    w = bank_head.w
+    if torch.is_grad_enabled() or w.dtype != torch.bfloat16 or x.dtype != w.dtype \
+            or any(isinstance(t, DTensor) for t in (w, x, slot_ids)):
+        w = nn.take_rows(w, slot_ids)  # (B, d, V), V as the bank shards it
+        x = nn.whole_features(x)
+        return nn.mask_padded_vocab(torch.bmm(x.to(nn.F32), w.to(nn.F32)), cfg)
+    bsz, t, d = x.shape
+    with (_nospan if spans is None else spans.span)("serve.decode.head") as s:
+        slots = slot_ids[:, None].expand(bsz, t).reshape(-1)
+        g, block_slots = group_head_rows(slots, w.shape[0])
+        if s is not None:
+            s.count(rows=bsz * t, padded=g.b_pad - bsz * t)
+        y = banked_matmul(bank_lib.scatter_padded(x.reshape(-1, d), g), w, None,
+                          block_slots, block_b=HEAD_BLOCK_B, out_dtype=nn.F32,
+                          tag="/head")
+        return nn.mask_padded_vocab(bank_lib.gather_padded(y, g).reshape(bsz, t, -1), cfg)
+
+
+def _final_logits(params, x, cfg, slot_ids=None, spans=None):
     x = nn.rmsnorm(params.final_norm, x, cfg.norm_eps)
     if cfg.bank_mode == "head" and slot_ids is not None and hasattr(params, "bank_head"):
-        return banked_logits(params.bank_head, x, cfg, slot_ids)
+        return banked_logits(params.bank_head, x, cfg, slot_ids, spans)
     return nn.logits_apply(params.embed, params.head, x, cfg)
 
 
@@ -454,7 +491,8 @@ def lm_decode_step(params: LM, tokens, cache, cache_len, cfg: ModelConfig,
     """One decode step.  tokens: (B, 1); cache from ``init_cache``, written
     in place and returned; cache_len: a scalar or a (B,) tensor — the
     number of valid context tokens of each row.  ``spans``: a
-    ``SpanRecorder`` for the ``zamba2`` family's layer spans.  Returns
+    ``SpanRecorder`` for the ``zamba2`` family's layer spans and the banked
+    head's.  Returns
     (logits (B, 1, V), cache)."""
     x = nn.embed_apply(params.embed, tokens)
     bsz = x.shape[0]
@@ -487,4 +525,4 @@ def lm_decode_step(params: LM, tokens, cache, cache_len, cfg: ModelConfig,
     else:
         raise ValueError(cfg.family)
 
-    return _final_logits(params, x, cfg, slot_ids), cache
+    return _final_logits(params, x, cfg, slot_ids, spans), cache

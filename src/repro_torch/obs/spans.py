@@ -51,7 +51,7 @@ SPAN_NAMES = (
 )
 
 #: The serving engine's spans, parent before child (``ServeEngine``; the
-#: last two inside the ``zamba2`` family's decode step).
+#: ``serve.decode.`` ones inside the model's decode step).
 SERVE_SPAN_NAMES = (
     "serve.admit",          # ServeEngine._admit: deadlines, prefills, splices
     "serve.prefill",        # one request's bucketed prefill; rows, padded
@@ -59,6 +59,7 @@ SERVE_SPAN_NAMES = (
     "serve.decode",         # one decode step; rows, kv_resident, kv_valid
     "serve.decode.mamba",   # one mamba layer of the step
     "serve.decode.shared",  # one hybrid site: a shared block and its linear
+    "serve.decode.head",    # the banked head grouped by slot; rows, padded
     "serve.retire",         # next tokens appended, finished rows freed
 )
 

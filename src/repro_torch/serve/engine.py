@@ -36,7 +36,9 @@ tokens), ``serve.splice`` (``nbytes`` of state written into the batch),
 ``kv_resident`` and ``kv_valid``: the positions it holds for those rows
 and the positions valid after the step's write) and ``serve.retire``;
 the ``zamba2`` family opens ``serve.decode.mamba`` and
-``serve.decode.shared`` inside its step.
+``serve.decode.shared`` inside its step, and the banked head
+``serve.decode.head`` (``rows``, and the ``padded`` rows of its grouping
+by slot).
 """
 
 from __future__ import annotations

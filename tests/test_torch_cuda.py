@@ -13,7 +13,9 @@ rows (their 16-byte loads), the data plane's batch (B = 2048, K = 16),
 ``xnor_matmul`` on both CTA shapes of ``xnor_warps``, and for the banked
 kernels ragged blocks, D and H, row tiles that would cross a block, H past
 the wgmma column tile, out-of-range slot ids and both dtypes; each
-banked_matmul case checks the variant that ran (``matmul_variant``).
+banked_matmul case checks the variant that ran (``matmul_variant``); the
+f32-output variant at the banked LM head's shape, and the bf16-output
+variant as its sums rounded once.
 Last, one run of the data-plane CLI on the card, its every tick served by
 the fused kernel; the runtime's spans under a profiler of host and device; the LM serving engine and the LM trainer on the card
 (preempted and resumed), neither launching a kernel of the port; a sharded
@@ -219,6 +221,58 @@ def test_banked_matmul_matches_plain(dev, dtype, b, bb, d, h, k):
     # f32: another summation order over d terms; bf16: one rounding of that
     tol = dict(atol=1e-2, rtol=1e-2) if dtype == torch.bfloat16 else dict(atol=2e-3, rtol=1e-5)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# The banked LM head (``models.lm.banked_logits``): mamba2-130m's D and
+# padded vocabulary, 256 rows over 4 slots in ragged counts, grouped by slot
+# as the head groups them (``group_head_rows``): the blocks past the last
+# slot's rows are padding only, and 50,288 columns end in a ragged
+# 192-column tile.
+HEAD_D, HEAD_V, HEAD_ROWS = 768, 50288, (90, 7, 0, 159)
+
+
+def test_head_kernel_matches_plain(dev):
+    from repro_torch.models.lm import HEAD_BLOCK_B, group_head_rows
+    rng = np.random.default_rng(31)
+    k = len(HEAD_ROWS)
+    slots = torch.from_numpy(rng.permutation(np.repeat(np.arange(k), HEAD_ROWS))).to(dev)
+    g, block_slots = group_head_rows(slots, k)
+    x, w = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev, torch.bfloat16)
+            for s in ((len(slots), HEAD_D), (k, HEAD_D, HEAD_V)))
+    xs = tbank.scatter_padded(x, g)
+    assert g.b_pad - int(g.dest.max()) - 1 >= HEAD_BLOCK_B  # a block of padding only
+    key = "bf16/wgmma.f32out/head"
+    before = bm.banked_matmul.launches[key]
+    kw = dict(block_b=HEAD_BLOCK_B, out_dtype=torch.float32)
+    got = bm.banked_matmul(xs, w, None, block_slots, tag="/head", **kw)
+    want = bm.banked_matmul_ref(xs, w, None, block_slots, **kw)
+    absref = bm.banked_matmul_ref(xs.abs(), w.abs(), None, block_slots, **kw)
+    torch.cuda.synchronize()
+    assert bm.banked_matmul.launches[key] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (g.b_pad, HEAD_V)
+    # the same exact bf16 products summed in f32 in two orders: within
+    # 2 D u sum|terms|
+    rows = g.dest.long()
+    diff = (got[rows] - want[rows]).abs()
+    assert bool((diff <= 2 * HEAD_D * 2.0 ** -24 * absref[rows]).all())
+
+
+@pytest.mark.parametrize("b,bb,d,h,k", [s for s in MATMUL_SHAPES
+                                        if bm.matmul_variant(torch.bfloat16, s[2], s[3])
+                                        == "bf16/wgmma"])
+def test_wgmma_bf16_out_is_the_f32_sums_rounded_once(dev, b, bb, d, h, k):
+    """``bf16/wgmma`` writes what ``bf16/wgmma.f32out`` sums, with the bias
+    added in f32 and rounded once to bf16: one accumulation in both
+    epilogues."""
+    rng = np.random.default_rng(b + d + h)
+    x, w, bias = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev, torch.bfloat16)
+                  for s in ((b, d), (k, d, h), (k, h)))
+    slots = torch.from_numpy(rng.integers(0, k, b // bb)).to(dev)
+    got = bm.banked_matmul(x, w, bias, slots, block_b=bb)
+    sums = bm.banked_matmul(x, w, None, slots, block_b=bb, out_dtype=torch.float32)
+    row_bias = bias.float()[slots.long().repeat_interleave(min(bb, b))]
+    torch.cuda.synchronize()
+    assert torch.equal(got, (sums + row_bias).to(torch.bfloat16))
 
 
 def test_banked_kernels_reject_what_they_cannot_take(dev):
