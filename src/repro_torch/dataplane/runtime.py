@@ -49,7 +49,7 @@ fused launch, drained once.  It needs the fused strategy, the ``cuda`` or
 ``ref`` backend and no fault injector; every other configuration keeps the
 sequential loop, with the same verdicts and telemetry totals.
 
-``spans`` (`repro_torch.obs.spans.SpanRecorder`, off until
+``spans`` (`repro_torch.spans.SpanRecorder`, off until
 ``spans.start()``) times the sequential path from inside: ``dp.dispatch``
 (``.hash``, ``.push``), ``dp.boundary``, ``dp.tick`` (``.pop``, ``.stage``,
 ``.h2d``, ``.launch``) and ``dp.retire`` (``.wait``, ``.d2h``, ``.tap``,
@@ -87,7 +87,7 @@ from repro_torch.dataplane.workloads.phases import SEQ_WORD
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.obs.spans import SpanRecorder
+from repro_torch.spans import SpanRecorder
 
 _LOOP_STRATEGIES = ("fused", "grouped", "grouped_staged")
 

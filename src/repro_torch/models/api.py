@@ -48,19 +48,34 @@ def apply(params, batch, cfg: ModelConfig, *, return_cache: bool = False):
     return _lm.lm_apply(params, batch, cfg, return_cache=return_cache)
 
 
+def _layout(cfg: ModelConfig, batch: int, seq_len: int, dtype=None) -> dict:
+    """The decode cache's leaves, as the module that builds it states them."""
+    return (_encdec if cfg.family == "encdec" else _lm).cache_layout(cfg, batch, seq_len, dtype)
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, device=None):
     """The decode cache (``device=None`` means the card)."""
-    dev = resolve_device(device)
-    if cfg.family == "encdec":
-        return _encdec.init_cache(cfg, batch, seq_len, dtype, device=dev)
-    return _lm.init_cache(cfg, batch, seq_len, dtype, device=dev)
+    return _lm.alloc_cache(_layout(cfg, batch, seq_len, dtype), resolve_device(device))
+
+
+def write_cache_row(cfg: ModelConfig, cache, row: int, row_cache) -> None:
+    """A one-row prefill cache (``apply(..., return_cache=True)``'s)
+    written into batch row ``row`` of the decode cache ``cache``: each KV
+    leaf's first ``min(S, Lc)`` positions, SSM and conv state whole."""
+    _lm.write_cache_row(_layout(cfg, 1, 1), cache, row, row_cache)
+
+
+def kv_positions(cfg: ModelConfig, seq_len: int) -> int:
+    """Positions a KV row of a cache for ``seq_len`` tokens holds; 0 where
+    ``cfg``'s family holds no KV."""
+    return _lm.kv_positions(_layout(cfg, 1, seq_len))
 
 
 def decode_step(params, tokens, cache, cache_len, cfg: ModelConfig, slot_ids=None,
                 spans=None):
     """One token per row; the cache is written in place and returned.
-    ``spans`` (a ``SpanRecorder``) times the layers where a family opens
-    spans inside its step (``zamba2``) and the banked head."""
+    ``spans`` (a ``SpanRecorder``) times the mamba layers, the ``zamba2``
+    sites and the banked head inside the step."""
     if cfg.family == "encdec":
         return _encdec.encdec_decode_step(params, tokens, cache, cache_len, cfg,
                                           slot_ids)

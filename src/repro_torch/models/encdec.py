@@ -16,7 +16,8 @@ import torch
 from torch import nn as tnn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import banked_logits, maybe_remat, stack_caches
+from repro_torch.models.lm import (CacheLeaf, _final_logits, _layer_view, maybe_remat,
+                                  stack_caches)
 from repro_torch.nn import modules as nn
 
 
@@ -112,13 +113,6 @@ def _dec_layer_apply(lp: DecLayer, x, memory, cfg: ModelConfig, positions):
     return x, kv, ckv
 
 
-def _final_logits(params, x, cfg, slot_ids=None):
-    x = nn.rmsnorm(params.final_norm, x, cfg.norm_eps)
-    if cfg.bank_mode == "head" and slot_ids is not None and hasattr(params, "bank_head"):
-        return banked_logits(params.bank_head, x, cfg, slot_ids)
-    return nn.logits_apply(params.embed, params.head, x, cfg)
-
-
 def encdec_apply(params: EncDec, batch, cfg: ModelConfig, *, return_cache=False):
     """Training / prefill forward.
 
@@ -148,18 +142,17 @@ def encdec_apply(params: EncDec, batch, cfg: ModelConfig, *, return_cache=False)
     return logits, aux
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
-               device) -> dict:
-    """Decoder cache: self-attn cache of seq_len + cross K/V of cross_len."""
+def cache_layout(cfg: ModelConfig, batch: int, seq_len: int, dtype=None) -> dict:
+    """Decoder cache's leaves (``lm.CacheLeaf``): self-attn KV of seq_len
+    positions + cross K/V of cross_len."""
     dt = dtype or nn.cdtype(cfg)
     g, hd = cfg.n_kv_heads, cfg.head_dim
 
-    def zeros(length):
-        return torch.zeros((cfg.n_dec_layers, batch, g, length, hd), dtype=dt,
-                           device=device)
+    def kv(length):
+        leaf = CacheLeaf((cfg.n_dec_layers, batch, g, length, hd), dt, 1, 3)
+        return {"k": leaf, "v": leaf}
 
-    return {"self": {"k": zeros(seq_len), "v": zeros(seq_len)},
-            "cross": {"k": zeros(cfg.cross_len), "v": zeros(cfg.cross_len)}}
+    return {"self": kv(seq_len), "cross": kv(cfg.cross_len)}
 
 
 def encdec_decode_step(params: EncDec, tokens, cache, cache_len, cfg: ModelConfig,
@@ -173,9 +166,9 @@ def encdec_decode_step(params: EncDec, tokens, cache, cache_len, cfg: ModelConfi
         h, _ = nn.attention_apply(
             lp.self_attn, nn.rmsnorm(lp.ln1, x, cfg.norm_eps), cfg,
             positions=positions, cache_len=cache_len,
-            kv_cache={k: v[i] for k, v in cache["self"].items()})
+            kv_cache=_layer_view(cache["self"], i))
         x = x + h
-        ckv = {k: v[i] for k, v in cache["cross"].items()}
+        ckv = _layer_view(cache["cross"], i)
         x = x + _cross_attention_apply(
             lp.cross_attn, nn.rmsnorm(lp.ln2, x, cfg.norm_eps), ckv, cfg)
         x = x + nn.mlp_apply(lp.mlp, nn.rmsnorm(lp.ln3, x, cfg.norm_eps))

@@ -24,7 +24,10 @@ layer.
 
 Caches keep the reference's leaf names and layouts, stacked over layers:
 KV ``(L, B, G, Lc, hd)``, SSM state ``(..., n, B, H, P, N)``, conv state
-``(..., n, B, W-1, C)``; decode writes them in place.
+``(..., n, B, W-1, C)``; decode writes them in place.  ``cache_layout``
+states each leaf's batch and (KV) position axes, which ``alloc_cache``,
+``write_cache_row`` and ``kv_positions`` read.  Every family's mamba
+layers (and ``zamba2``'s sites) run in ``_ssm_stack_apply`` / ``_decode``.
 
 ``cfg.remat == "full"`` recomputes each layer (each hybrid group, and each
 mamba layer inside it) in the backward pass through
@@ -37,9 +40,8 @@ needs gradients.
 
 from __future__ import annotations
 
-import contextlib
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn as tnn
@@ -52,6 +54,10 @@ from repro_torch.kernels.banked_matmul import banked_matmul
 from repro_torch.nn import modules as nn
 from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import ssd as ssd_lib
+from repro_torch.spans import SpanRecorder
+
+# The recorder of a step handed none: never started, so its spans are no-ops.
+_NO_SPANS = SpanRecorder()
 
 
 # ---------------------------------------------------------------------------
@@ -235,30 +241,33 @@ class LM(tnn.Module):
 # caches
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
-               device) -> dict:
-    """Decode cache for a context of ``seq_len`` tokens."""
+class CacheLeaf(NamedTuple):
+    """A decode cache's leaf: shape, dtype, batch axis, KV position axis."""
+    shape: tuple
+    dtype: torch.dtype
+    row_axis: int
+    pos_axis: Optional[int] = None
+
+
+def cache_layout(cfg: ModelConfig, batch: int, seq_len: int, dtype=None) -> dict:
+    """The decode cache's leaves (``CacheLeaf``) for a context of
+    ``seq_len`` tokens, named as the reference's."""
     quant = cfg.cache_dtype == "int8" and dtype is None
     dt = dtype or (torch.int8 if quant else nn.cdtype(cfg))
     lc = cfg.kv_cache_len(seq_len)
     g, hd = cfg.n_kv_heads, cfg.head_dim or 0
 
-    def zeros(shape, t):
-        return torch.zeros(shape, dtype=t, device=device)
-
     def kv(n_layers):
-        c = {"k": zeros((n_layers, batch, g, lc, hd), dt),
-             "v": zeros((n_layers, batch, g, lc, hd), dt)}
-        if quant:
-            c["k_scale"] = zeros((n_layers, batch, g, lc), nn.F32)
-            c["v_scale"] = zeros((n_layers, batch, g, lc), nn.F32)
-        return c
+        leaf, scale = (CacheLeaf((n_layers, batch, g, lc, hd), dt, 1, 3),
+                       CacheLeaf((n_layers, batch, g, lc), nn.F32, 1, 3))
+        return dict(k=leaf, v=leaf, **(dict(k_scale=scale, v_scale=scale) if quant else {}))
 
     def mamba_states(n, extra=()):
         di, h, nst, conv_dim = ssd_lib.ssm_dims(cfg)
+        row = len(extra) + 1
         return {
-            "ssm": zeros((*extra, n, batch, h, cfg.ssm_head_dim, nst), nn.F32),
-            "conv": zeros((*extra, n, batch, cfg.ssm_conv_width - 1, conv_dim), dt),
+            "ssm": CacheLeaf((*extra, n, batch, h, cfg.ssm_head_dim, nst), nn.F32, row),
+            "conv": CacheLeaf((*extra, n, batch, cfg.ssm_conv_width - 1, conv_dim), dt, row),
         }
 
     if cfg.family in ("dense", "moe"):
@@ -276,6 +285,34 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
     if cfg.family == "zamba2":
         return dict(mamba_states(cfg.n_layers), kv=kv(len(cfg.hybrid_layer_ids)))
     raise ValueError(cfg.family)
+
+
+def alloc_cache(layout, device) -> dict:
+    """The decode cache ``layout`` states, zeroed."""
+    if isinstance(layout, dict):
+        return {k: alloc_cache(v, device) for k, v in layout.items()}
+    return torch.zeros(layout.shape, dtype=layout.dtype, device=device)
+
+
+def write_cache_row(layout, cache, row: int, row_cache) -> None:
+    """The one-row ``row_cache`` written into batch row ``row`` of
+    ``cache``: a KV leaf's first ``min(S, Lc)`` positions (the rest kept,
+    as the reference's splice keeps it), any other leaf's row whole."""
+    if isinstance(layout, dict):
+        for k in cache:
+            write_cache_row(layout[k], cache[k], row, row_cache[k])
+        return
+    if layout.pos_axis is not None:
+        n = min(row_cache.shape[layout.pos_axis], cache.shape[layout.pos_axis])
+        cache, row_cache = (t.narrow(layout.pos_axis, 0, n) for t in (cache, row_cache))
+    cache.select(layout.row_axis, row).copy_(row_cache.select(layout.row_axis, 0))
+
+
+def kv_positions(layout) -> int:
+    """Positions a row of the first KV leaf holds (0: no KV)."""
+    if isinstance(layout, dict):
+        return next((n for n in map(kv_positions, layout.values()) if n), 0)
+    return 0 if layout.pos_axis is None else layout.shape[layout.pos_axis]
 
 
 def _layer_view(cache: dict, i: int) -> dict:
@@ -331,10 +368,11 @@ def banked_logits(bank_head: nn.Weight, x, cfg: ModelConfig, slot_ids, spans=Non
         x = nn.whole_features(x)
         return nn.mask_padded_vocab(torch.bmm(x.to(nn.F32), w.to(nn.F32)), cfg)
     bsz, t, d = x.shape
-    with (_nospan if spans is None else spans.span)("serve.decode.head") as s:
+    spans = spans or _NO_SPANS
+    with spans.span("serve.decode.head") as s:
         slots = slot_ids[:, None].expand(bsz, t).reshape(-1)
         g, block_slots = group_head_rows(slots, w.shape[0])
-        if s is not None:
+        if spans.on:
             s.count(rows=bsz * t, padded=g.b_pad - bsz * t)
         y = banked_matmul(bank_lib.scatter_padded(x.reshape(-1, d), g), w, None,
                           block_slots, block_b=HEAD_BLOCK_B, out_dtype=nn.F32,
@@ -363,54 +401,31 @@ def _site_apply(params: LM, j: int, x, e, cfg, *, positions, kv_cache=None,
     return nn.project(nn.gelu_mlp_apply(blk.mlp, h, delta), site.linear), kv
 
 
-def _zamba2_apply(params: LM, x, cfg, *, positions, slot_ids, pad_mask, last_valid):
-    """The published hybrid over a full sequence: (x, its cache)."""
-    e, site = x, {layer: j for j, layer in enumerate(cfg.hybrid_layer_ids)}
-    states, kvs = [], []
-    for i, lp in enumerate(params.layers):
+def _sites(cfg: ModelConfig) -> dict:
+    """Layer ``hybrid_layer_ids[j]`` -> site j (family ``zamba2``; none
+    elsewhere)."""
+    return {layer: j for j, layer in enumerate(getattr(cfg, "hybrid_layer_ids", ()))}
+
+
+def _ssm_stack_apply(params: LM, layers, x, cfg, *, positions=None, slot_ids=None,
+                     pad_mask=None, last_valid=None):
+    """A stack of mamba layers over a full sequence: (x, its cache).  Before
+    layer ``hybrid_layer_ids[j]`` (``zamba2``) site j's output over [x, e],
+    e the stack's input, joins the layer's mamba input, and the site's KV
+    goes into the cache as ``kv``."""
+    sites, e, states, kvs = _sites(cfg), x, [], []
+    for i, lp in enumerate(layers):
         t = None
-        if i in site:
-            t, kv = _site_apply(params, site[i], x, e, cfg, positions=positions)
+        if i in sites:
+            t, kv = _site_apply(params, sites[i], x, e, cfg, positions=positions)
             kvs.append(kv)
         x, ssm, conv = maybe_remat(_ssm_layer_apply, cfg)(
             lp, x, cfg, slot_ids=slot_ids, pad_mask=pad_mask, last_valid=last_valid, t=t)
         states.append({"ssm": ssm, "conv": conv})
-    return x, dict(stack_caches(states), kv=stack_caches(kvs))
-
-
-def _nospan(name):
-    return contextlib.nullcontext()
-
-
-def _zamba2_decode(params: LM, x, cfg, cache, cache_len, positions, slot_ids, spans):
-    """One token through the published hybrid, the cache written in place;
-    each site under ``serve.decode.shared`` and each mamba layer under
-    ``serve.decode.mamba`` (``spans``: a ``SpanRecorder``, or None)."""
-    span = _nospan if spans is None else spans.span
-    e, site = x, {layer: j for j, layer in enumerate(cfg.hybrid_layer_ids)}
-    for i, lp in enumerate(params.layers):
-        t = None
-        if i in site:
-            with span("serve.decode.shared"):
-                t, _ = _site_apply(params, site[i], x, e, cfg, positions=positions,
-                                   kv_cache=_layer_view(cache["kv"], site[i]),
-                                   cache_len=cache_len)
-        with span("serve.decode.mamba"):
-            x, ssm, conv = _ssm_layer_apply(lp, x, cfg, ssm_state=cache["ssm"][i],
-                                            conv_state=cache["conv"][i],
-                                            slot_ids=slot_ids, t=t)
-            cache["ssm"][i] = ssm
-            cache["conv"][i] = conv
-    return x
-
-
-def _ssm_stack_apply(layers, x, cfg, *, slot_ids, pad_mask, last_valid):
-    states = []
-    for lp in layers:
-        x, ssm, conv = maybe_remat(_ssm_layer_apply, cfg)(
-            lp, x, cfg, slot_ids=slot_ids, pad_mask=pad_mask, last_valid=last_valid)
-        states.append({"ssm": ssm, "conv": conv})
-    return x, stack_caches(states)
+    cache = stack_caches(states)
+    if kvs:
+        cache["kv"] = stack_caches(kvs)
+    return x, cache
 
 
 def lm_apply(params: LM, batch, cfg: ModelConfig, *, return_cache: bool = False):
@@ -442,12 +457,13 @@ def lm_apply(params: LM, batch, cfg: ModelConfig, *, return_cache: bool = False)
             kvs.append(kv)
             aux_total = aux_total + aux
         caches = stack_caches(kvs) if return_cache else None
-    elif cfg.family == "ssm":
-        x, caches = _ssm_stack_apply(params.layers, x, cfg, slot_ids=slot_ids,
-                                     pad_mask=pad_mask, last_valid=last_valid)
+    elif cfg.family in ("ssm", "zamba2"):
+        x, caches = _ssm_stack_apply(params, params.layers, x, cfg, positions=positions,
+                                     slot_ids=slot_ids, pad_mask=pad_mask,
+                                     last_valid=last_valid)
     elif cfg.family == "hybrid":
         def group(glp, x):
-            x, states = _ssm_stack_apply(glp, x, cfg, slot_ids=slot_ids,
+            x, states = _ssm_stack_apply(params, glp, x, cfg, slot_ids=slot_ids,
                                          pad_mask=pad_mask, last_valid=last_valid)
             x, kv, _ = _dense_layer_apply(params.shared_attn, x, cfg,
                                           positions=positions, slot_ids=slot_ids)
@@ -461,11 +477,8 @@ def lm_apply(params: LM, batch, cfg: ModelConfig, *, return_cache: bool = False)
         caches = {"groups": stack_caches(gstates), "attn": stack_caches(kvs)}
         if hasattr(params, "trailing"):
             x, caches["trailing"] = _ssm_stack_apply(
-                params.trailing, x, cfg, slot_ids=slot_ids,
+                params, params.trailing, x, cfg, slot_ids=slot_ids,
                 pad_mask=pad_mask, last_valid=last_valid)
-    elif cfg.family == "zamba2":
-        x, caches = _zamba2_apply(params, x, cfg, positions=positions, slot_ids=slot_ids,
-                                  pad_mask=pad_mask, last_valid=last_valid)
     else:
         raise ValueError(cfg.family)
 
@@ -475,25 +488,37 @@ def lm_apply(params: LM, batch, cfg: ModelConfig, *, return_cache: bool = False)
     return logits, aux_total
 
 
-def _ssm_stack_decode(layers, x, cfg, cache, slot_ids):
-    """One token through a stack of mamba layers, each layer's states
-    written back in place into the stacked ``cache``."""
+def _ssm_stack_decode(params: LM, layers, x, cfg, cache, *, positions=None,
+                      cache_len=None, slot_ids=None, spans=_NO_SPANS):
+    """One token through a stack of mamba layers, each layer's states and
+    each site's KV (``cache["kv"][j]``) written back in place into the
+    stacked ``cache``; each layer under ``serve.decode.mamba``, each site
+    under ``serve.decode.shared`` (``spans``: a ``SpanRecorder``)."""
+    sites, e = _sites(cfg), x
     for i, lp in enumerate(layers):
-        x, ssm, conv = _ssm_layer_apply(lp, x, cfg, ssm_state=cache["ssm"][i],
-                                        conv_state=cache["conv"][i], slot_ids=slot_ids)
-        cache["ssm"][i] = ssm
-        cache["conv"][i] = conv
+        t = None
+        if i in sites:
+            with spans.span("serve.decode.shared"):
+                t, _ = _site_apply(params, sites[i], x, e, cfg, positions=positions,
+                                   kv_cache=_layer_view(cache["kv"], sites[i]),
+                                   cache_len=cache_len)
+        with spans.span("serve.decode.mamba"):
+            x, ssm, conv = _ssm_layer_apply(lp, x, cfg, ssm_state=cache["ssm"][i],
+                                            conv_state=cache["conv"][i],
+                                            slot_ids=slot_ids, t=t)
+            cache["ssm"][i] = ssm
+            cache["conv"][i] = conv
     return x
 
 
 def lm_decode_step(params: LM, tokens, cache, cache_len, cfg: ModelConfig,
                    slot_ids=None, spans=None):
-    """One decode step.  tokens: (B, 1); cache from ``init_cache``, written
+    """One decode step.  tokens: (B, 1); cache from ``api.init_cache``, written
     in place and returned; cache_len: a scalar or a (B,) tensor — the
     number of valid context tokens of each row.  ``spans``: a
-    ``SpanRecorder`` for the ``zamba2`` family's layer spans and the banked
-    head's.  Returns
-    (logits (B, 1, V), cache)."""
+    ``SpanRecorder`` for the mamba layers' and sites' spans and the banked
+    head's (None: none recorded).  Returns (logits (B, 1, V), cache)."""
+    spans = spans or _NO_SPANS
     x = nn.embed_apply(params.embed, tokens)
     bsz = x.shape[0]
     positions = None
@@ -509,19 +534,20 @@ def lm_decode_step(params: LM, tokens, cache, cache_len, cfg: ModelConfig,
             x, _, _ = _dense_layer_apply(
                 lp, x, cfg, positions=positions, kv_cache=_layer_view(cache, i),
                 cache_len=cache_len, slot_ids=slot_ids, moe_capacity=moe_capacity)
-    elif cfg.family == "ssm":
-        x = _ssm_stack_decode(params.layers, x, cfg, cache, slot_ids)
+    elif cfg.family in ("ssm", "zamba2"):
+        x = _ssm_stack_decode(params, params.layers, x, cfg, cache, positions=positions,
+                              cache_len=cache_len, slot_ids=slot_ids, spans=spans)
     elif cfg.family == "hybrid":
         for gi, glp in enumerate(params.groups):
-            x = _ssm_stack_decode(glp, x, cfg, _layer_view(cache["groups"], gi), slot_ids)
+            x = _ssm_stack_decode(params, glp, x, cfg, _layer_view(cache["groups"], gi),
+                                  slot_ids=slot_ids, spans=spans)
             x, _, _ = _dense_layer_apply(
                 params.shared_attn, x, cfg, positions=positions,
                 kv_cache=_layer_view(cache["attn"], gi), cache_len=cache_len,
                 slot_ids=slot_ids)
         if hasattr(params, "trailing"):
-            x = _ssm_stack_decode(params.trailing, x, cfg, cache["trailing"], slot_ids)
-    elif cfg.family == "zamba2":
-        x = _zamba2_decode(params, x, cfg, cache, cache_len, positions, slot_ids, spans)
+            x = _ssm_stack_decode(params, params.trailing, x, cfg, cache["trailing"],
+                                  slot_ids=slot_ids, spans=spans)
     else:
         raise ValueError(cfg.family)
 

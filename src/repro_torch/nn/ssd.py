@@ -82,13 +82,11 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, init_state=None, scores=None):
 
     x: (B, S, H, P) values; dt: (B, S, H) positive step sizes;
     a: (H,) negative decay rates; b, c: (B, S, G, N) in G groups, head h
-    reading group h // (H / G) ((B, S, N) is one group).
+    reading group h // (H / G).
     ``scores``: the (B, S / chunk, G, chunk, chunk) C·Bᵀ products within
     each chunk, when the caller has them (``_HeadShards``); else computed
     here.  Returns y: (B, S, H, P) and final state (B, H, P, N).
     """
-    if b.ndim == 3:
-        b, c = b[:, :, None], c[:, :, None]
     bsz, s, h, p = x.shape
     g, n = b.shape[-2:]
     if s % chunk:
@@ -143,10 +141,8 @@ def ssd_sequential(x, dt, a, b, c, init_state=None):
 
 def ssd_decode_step(state, xt, dtt, a, bt, ct):
     """One-token recurrence.  state: (B,H,P,N); xt: (B,H,P); dtt: (B,H);
-    bt, ct: (B,G,N), head h reading group h // (H/G) ((B,N) is one group).
+    bt, ct: (B,G,N), head h reading group h // (H/G).
     Returns (new_state, y_t (B,H,P))."""
-    if bt.ndim == 2:
-        bt, ct = bt[:, None], ct[:, None]
     g = bt.shape[1]
     dtf = dtt.to(F32)
     decay = torch.exp(dtf * a)                                   # (B, H)
@@ -395,6 +391,7 @@ class _HeadShards:
         conv_out = F.silu(conv_out.to(F32)).to(x.dtype)
         conv_out = self.gather(conv_out, 2, (bsz, s, conv_dim))
         xs, bs, cs = torch.split(conv_out, [di, n, n], dim=-1)
+        bs, cs = bs[..., None, :], cs[..., None, :]       # (B, S, 1, N): one B/C group
 
         dt = torch.logaddexp(dt_raw[..., hs].to(F32) + self.weight(p.dt_bias)[hs],
                              torch.zeros((), dtype=F32, device=x.device))

@@ -8,9 +8,9 @@ Four layers, each usable alone:
 * ``server``  — ``ObsServer``, a threaded stdlib HTTP server exposing
   live mesh state as JSON + SSE, plus the self-contained
   ``dashboard.html`` renderer.
-* ``spans``   — ``SpanRecorder``, the data plane's own host spans (each
-  runtime's ``spans``), mirrored onto ``torch.profiler``'s timeline, and
-  the epoch and health spans of the stream;
+* ``spans``   — the epoch and health spans of the stream and the epoch
+  log's serializer (the host spans' ``SpanRecorder`` is
+  ``repro_torch.spans``, a module of its own);
 * ``anomaly`` — ``AnomalyDetector``, rolling-window detectors over the
   delta stream that classify the active traffic regime and *propose*
   (never auto-apply) typed command epochs.
@@ -20,7 +20,5 @@ has already copied off the device.
 """
 
 from repro_torch.obs.anomaly import AnomalyDetector  # noqa: F401
-from repro_torch.obs.spans import (  # noqa: F401
-    SpanRecorder, epoch_event, epoch_log_doc, health_event,
-)
+from repro_torch.obs.spans import epoch_event, epoch_log_doc, health_event  # noqa: F401
 from repro_torch.obs.stream import TelemetryStream, attach, detach  # noqa: F401

@@ -28,17 +28,18 @@ another; the params must live there).  Host state (``tokens``,
 ``lengths``, ``slot_ids``, ``active``) stays in NumPy: each tick copies it
 to the device once and reads the next tokens back once.
 
-``spans`` (``repro_torch.obs.spans.SpanRecorder``, off until
+``spans`` (``repro_torch.spans.SpanRecorder``, off until
 ``spans.start()``) times a tick from inside: ``serve.admit``,
 ``serve.prefill`` (one a request; ``rows`` 1, ``padded`` the bucket's pad
 tokens), ``serve.splice`` (``nbytes`` of state written into the batch),
 ``serve.decode`` (``rows`` active; where the cache holds KV,
 ``kv_resident`` and ``kv_valid``: the positions it holds for those rows
-and the positions valid after the step's write) and ``serve.retire``;
-the ``zamba2`` family opens ``serve.decode.mamba`` and
-``serve.decode.shared`` inside its step, and the banked head
-``serve.decode.head`` (``rows``, and the ``padded`` rows of its grouping
-by slot).
+and the positions valid after the step's write) and ``serve.retire``.
+Inside the step the model opens ``serve.decode.mamba`` for each mamba
+layer, ``serve.decode.shared`` for each ``zamba2`` site, and the banked
+head ``serve.decode.head`` (``rows``, and the ``padded`` rows of its
+grouping by slot).  The cache's leaves are the model layer's
+(``api.init_cache``, ``write_cache_row``, ``kv_positions``).
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import api
-from repro_torch.obs.spans import SpanRecorder
+from repro_torch.spans import SpanRecorder
 
 
 @dataclasses.dataclass
@@ -119,7 +120,7 @@ class ServeEngine:
         gc.collect()
         with torch.inference_mode():
             self.cache = api.init_cache(cfg, max_batch, max_seq, device=self.device)
-        self.kv_len = _kv_len(self.cache)                  # positions a KV row holds
+        self.kv_len = api.kv_positions(cfg, max_seq)       # positions a KV row holds
         self.spans = SpanRecorder()
         self.tokens = np.zeros((max_batch,), np.int32)     # last token per row
         self.lengths = np.zeros((max_batch,), np.int32)    # context length
@@ -177,26 +178,7 @@ class ServeEngine:
     @torch.inference_mode()
     def _splice_cache(self, row: int, row_cache):
         """Write a prefill cache (leaves (..., 1, ...)) into batch row."""
-
-        def splice(name, full, part):
-            if isinstance(full, dict):
-                for key in full:
-                    splice(f"{name}/{key}" if name else key, full[key], part[key])
-            elif name.endswith("/k") or name.endswith("/v") or name in ("k", "v"):
-                # full: (L, B, G, Lmax, hd); part: (L, 1, G, S, hd)
-                s = min(part.shape[3], full.shape[3])
-                full[:, row, :, :s] = part[:, 0, :, :s]
-            else:
-                # ssm/conv state leaves: (..., B, ...) at the same position as
-                # init_cache builds them — batch dim right after stack dims.
-                bdim = _batch_dim(name, full.ndim)
-                idx = [slice(None)] * full.ndim
-                idx[bdim] = row
-                pidx = [slice(None)] * part.ndim
-                pidx[bdim] = 0
-                full[tuple(idx)] = part[tuple(pidx)]
-
-        splice("", self.cache, row_cache)
+        api.write_cache_row(self.cfg, self.cache, row, row_cache)
 
     def _admit(self):
         tick_start = time.monotonic()
@@ -290,30 +272,8 @@ class ServeEngine:
         return self.finished
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for key, v in tree.items():
-            yield from ((f"{key}/{n}" if n else key, t) for n, t in _leaves(v))
-    else:
-        yield "", tree
-
-
-def _kv_len(cache) -> int:
-    """Positions a row of the cache's KV holds (0: the cache holds none)."""
-    for name, t in _leaves(cache):
-        if name.split("/")[-1] == "k":
-            return int(t.shape[-2])
-    return 0
-
-
-def _nbytes(cache) -> int:
+def _nbytes(tree) -> int:
     """Bytes of a cache tree's leaves."""
-    return sum(t.numel() * t.element_size() for _, t in _leaves(cache))
-
-
-def _batch_dim(name: str, ndim: int) -> int:
-    if name.endswith("ssm"):
-        return ndim - 4
-    if name.endswith("conv"):
-        return ndim - 3
-    return 1
+    if isinstance(tree, dict):
+        return sum(map(_nbytes, tree.values()))
+    return tree.numel() * tree.element_size()

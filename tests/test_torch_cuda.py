@@ -314,7 +314,7 @@ def test_dataplane_spans_on_the_card(dev):
     work (a mirror on the device timeline, if any, is a user annotation)."""
     from repro_torch.core import executor
     from repro_torch.dataplane import DataplaneRuntime
-    from repro_torch.obs.spans import SPAN_NAMES
+    from repro_torch.spans import SPAN_NAMES
 
     rng = np.random.default_rng(27)
     bank = executor.init_bank(rng, 16, device=dev)

@@ -57,6 +57,13 @@ def _ssd_inputs(rng, b, s, h, p, n):
     return x, dt, a, bb, cc
 
 
+def _port(ins):
+    """The reference's SSD inputs as the port takes them: its one-group B
+    and C, (B, S, N), as (B, S, 1, N)."""
+    x, dt, a, bb, cc = map(_t, ins)
+    return x, dt, a, bb[:, :, None], cc[:, :, None]
+
+
 @pytest.mark.parametrize("b,s,h,p,n,chunks", [
     (2, 32, 3, 8, 4, (4, 8, 32)), (1, 16, 1, 4, 2, (1, 16)), (3, 24, 4, 8, 4, (8,))])
 def test_ssd_chunked(rng, b, s, h, p, n, chunks):
@@ -66,22 +73,22 @@ def test_ssd_chunked(rng, b, s, h, p, n, chunks):
         for state0 in (None, init):
             want_y, want_s = jssd.ssd_chunked(*map(jnp.asarray, ins), chunk,
                                               None if state0 is None else jnp.asarray(state0))
-            got_y, got_s = tssd.ssd_chunked(*map(_t, ins), chunk,
+            got_y, got_s = tssd.ssd_chunked(*_port(ins), chunk,
                                             None if state0 is None else _t(state0))
             _close(got_y, want_y)
             _close(got_s, want_s)
             seq_y, seq_s = tssd.ssd_sequential(
-                *map(_t, ins), None if state0 is None else _t(state0))
+                *_port(ins), None if state0 is None else _t(state0))
             _close(got_y, seq_y.numpy(), atol=1e-4, rtol=1e-4)
             _close(got_s, seq_s.numpy(), atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="not divisible"):
-        tssd.ssd_chunked(*map(_t, ins), 5)
+        tssd.ssd_chunked(*_port(ins), 5)
 
 
 def test_ssd_sequential_and_decode_step(rng):
     ins = _ssd_inputs(rng, 2, 6, 2, 4, 4)
     want_y, want_s = jssd.ssd_sequential(*map(jnp.asarray, ins))
-    got_y, got_s = tssd.ssd_sequential(*map(_t, ins))
+    got_y, got_s = tssd.ssd_sequential(*_port(ins))
     _close(got_y, want_y)
     _close(got_s, want_s)
 

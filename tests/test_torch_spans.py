@@ -1,4 +1,4 @@
-"""The data plane's own spans (``repro_torch.obs.spans.SpanRecorder``, each
+"""The data plane's own spans (``repro_torch.spans.SpanRecorder``, each
 runtime's ``spans``) and the queue counters beside them (``wait_s``,
 ``padded``): off, the recorder changes nothing and stores nothing; on, its
 tree covers the arrival edge and the tick, its counts equal what the
@@ -15,8 +15,8 @@ from _torch_parity import one_torch_thread  # noqa: F401
 from repro_torch.core import executor
 from repro_torch.dataplane import DataplaneRuntime, telemetry
 from repro_torch.dataplane.workloads.phases import SEQ_WORD
-from repro_torch.obs import spans as spans_mod
-from repro_torch.obs.spans import SPAN_NAMES, SpanRecorder
+from repro_torch import spans as spans_mod
+from repro_torch.spans import SPAN_NAMES, SpanRecorder
 
 NUM_SLOTS = 2
 NUM_QUEUES = 4
