@@ -50,6 +50,13 @@ Phases, in order; any failure raises and exits non-zero:
      out, no bias: within 2 gamma(D) |x| |W| of its plain version (the
      line's ``call_ms`` is the whole head: grouping, kernel, row order and
      vocabulary mask);
+   * ``decode_attention`` at ``zamba2-7b-instruct.chat64-sat``'s sites (64
+     rows, 32 heads, D 224, L 1536, bf16, lengths from the chat mix) and at
+     phase 9 (a)'s f32 smollm-360m decode (8 rows, 5 groups of 3 heads, D
+     64, L 512): within 2 (D + L) u of the sums of absolute terms of its
+     plain version, plus one bf16 ulp of each probability and of the output
+     where those are bf16; ``library_ms`` is ``scaled_dot_product_attention``
+     with the valid positions as its mask, a yardstick the port never calls;
    * ``double_buffered_forward`` (a case of the fused kernel) at H32,
      K = 16 + 16, gather mode, ``meta_words=16`` with actions: equal to
      ``fused_forward`` on the front or back bank bit for bit;
@@ -204,7 +211,9 @@ Phases, in order; any failure raises and exits non-zero:
    ``fig15_swap`` once each (``cli_figures``);
 9. serves LMs on the card (``run_lm_serve_phase``), each part with the
    launch counts set to 0 around it and failing if any kernel of the port
-   was launched but (h)'s head: (a) smollm-360m at its published
+   was launched but (h)'s head and decode attention, which (a), (b), (c),
+   (e) and (f) require on their cache dtype's kernel alone (counted into
+   phase 3's rows) and (d) and (h) must not launch: (a) smollm-360m at its published
    width and depth in f32 (random weights, ``api.init`` seed 0) through
    ``ServeEngine(max_batch=8, max_seq=512)``, 8 requests of 4-48 prompt
    tokens and 8 new tokens, each output held against the card's own
@@ -212,7 +221,9 @@ Phases, in order; any failure raises and exits non-zero:
    where the greedy top-2 logit margin is under ``margin_bound``, derived
    from f32's unit roundoff and the depth); (e) on the same weights, 10
    decode steps with the int8 KV cache against the full-precision one:
-   relative logit error under 0.05, the cache bytes of each; (c) the
+   relative logit error under 0.05, the cache bytes of each, the int8
+   cache's steps launching no decode attention and the f32 cache's one a
+   layer; (c) the
    adapter bank (``bank_mode="adapter"``, 2 slots, slot 1's ``b`` drawn
    from a generator seeded 7): one prompt on slots 0 and 1 gives two
    outputs, each its slot's greedy decode; (b) the published bf16 model on
@@ -1268,6 +1279,7 @@ HEAD_PREFILL = HEAD_BUCKETS[-1]
 HEAD_PROMPTS = (20, 100, 400)      # (h)'s prompt lengths, one per bucket, in turn
 HEAD_REQUESTS = 12                 # (h)'s requests, slots in turn
 HEAD_KEY = "bf16/wgmma.f32out/head"  # banked_matmul.launches of the grouped head
+DECODE_ROWS = 64                   # zamba2-7b-instruct.chat64-sat's decode rows (phase 3)
 
 
 def head_config():
@@ -1294,14 +1306,24 @@ def run_lm_serve_phase(*, counted, entries, dev, out) -> None:
 
     from repro_torch.configs.registry import ARCH_IDS, get_config
     from repro_torch.kernels import banked_matmul as bm
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.models import api
     from repro_torch.serve.engine import Request, ServeEngine
 
-    def part(label, fn, allow=()):
+    def part(label, fn, allow=(), attention=None):
         """``fn`` with the counts set to 0 around it; no kernel launched but
-        the ``banked_matmul`` keys in ``allow``."""
+        the ``banked_matmul`` keys in ``allow`` and, where the part decodes
+        attention, ``decode_attention`` on its cache dtype ``attention``
+        alone, which it then requires (counted into phase 3's row)."""
         result, n = counted(fn)
         n["banked_matmul"] = {k: v for k, v in n["banked_matmul"].items() if k not in allow}
+        if attention is not None:
+            att = n.pop("decode_attention")
+            if set(att) != {attention}:
+                fail(f"lm_serve {label}: decode attention launched {att}, "
+                     f"not on its {attention} kernel alone")
+            entries[f"attn/decode/{attention}"]["launches"] += att[attention]
+            result["decode_attention_launches"] = att[attention]
         launched = {k: v for k, v in n.items() if v}
         if launched:
             fail(f"lm_serve {label}: kernels launched on the LM path: {launched}")
@@ -1402,7 +1424,7 @@ def run_lm_serve_phase(*, counted, entries, dev, out) -> None:
         r["params"] = sum(p.numel() for p in held["f32"].parameters())
         r["wall_s"] = time.perf_counter() - t0
         return r
-    res["a_smollm_f32"] = part("a", a)
+    res["a_smollm_f32"] = part("a", a, attention="float32")
 
     # e. the int8 KV cache on the same f32 weights: 10 decode steps
     def e():
@@ -1417,8 +1439,13 @@ def run_lm_serve_phase(*, counted, entries, dev, out) -> None:
                 tt = torch.full((2, 1), int(t), device=dev)
                 lg = {}
                 for c in (f32, f32_8):
+                    before = sum(da.decode_attention.launches.values())
                     lg[c.cache_dtype], caches[c.cache_dtype] = api.decode_step(
                         held["f32"], tt, caches[c.cache_dtype], i, c)
+                    added = sum(da.decode_attention.launches.values()) - before
+                    if added != (0 if c is f32_8 else c.n_layers):
+                        fail(f"lm_serve e: the {c.cache_dtype} cache's decode step launched "
+                             f"decode attention {added} times")
                 rel = float((lg["model"] - lg["int8"]).abs().max()
                             / (lg["model"].abs().max() + 1e-9))
                 worst = max(worst, rel)
@@ -1430,7 +1457,7 @@ def run_lm_serve_phase(*, counted, entries, dev, out) -> None:
         print(f"lm_serve e int8 cache: max rel logit err {worst:.4g} < {LM_INT8_REL}; "
               f"cache bytes {nbytes['model']} -> {nbytes['int8']}", flush=True)
         return r
-    res["e_int8_cache"] = part("e", e)
+    res["e_int8_cache"] = part("e", e, attention="float32")
     free("f32")
 
     # c. the adapter bank at full width: slot 1's b bumped from a seeded draw
@@ -1450,7 +1477,7 @@ def run_lm_serve_phase(*, counted, entries, dev, out) -> None:
         r = check_greedy("c adapter bank", params, cfg, reqs, outs)
         r["outputs"] = [outs[0], outs[1]]
         return r
-    res["c_adapter_bank"] = part("c", c)
+    res["c_adapter_bank"] = part("c", c, attention="float32")
     free("bank")
 
     # b. the published dtype, bf16: rate, prefill and decode times, memory,
@@ -1501,7 +1528,7 @@ def run_lm_serve_phase(*, counted, entries, dev, out) -> None:
               f"{r['decode_tick_profile']['device_idle_share']:.3f}, peak "
               f"{r['peak_memory_gb']:.3f} GB", flush=True)
         return r
-    res["b_smollm_bf16"] = part("b", b)
+    res["b_smollm_bf16"] = part("b", b, attention="bfloat16")
     free("bf16")
 
     # d. mamba2-130m at full width and depth, f32; two prompts past one chunk
@@ -1534,7 +1561,7 @@ def run_lm_serve_phase(*, counted, entries, dev, out) -> None:
                             prefill_buckets=(8, 32))
             runs[arch] = check_greedy(f"f {arch} reduced", params, cfg, reqs, outs)
         return runs
-    res["f_reduced"] = part("f", f)
+    res["f_reduced"] = part("f", f, attention="float32")
 
     # h. mamba2-130m in its published bf16 with chat-sat's bank of output
     # heads and engine shape: the head grouped by slot on bf16/wgmma.f32out,
@@ -2195,6 +2222,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import banked_matmul as bm
     from repro_torch.kernels import bnn_xnor, fused_forward as ff
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.launch import packetpath
     from repro_torch.train import bnn
 
@@ -2600,6 +2628,63 @@ def main() -> int:
                "src/repro/models/lm.py:250", err, run_k, run_p, b_ms, b_by, call=head_call, library=library)
         entries[key]["variant"] = "bf16/wgmma.f32out"
 
+    # Decode attention (``kernels.decode_attention``) at zamba2-7b-instruct.
+    # chat64-sat's sites (64 rows, 32 groups of one head, D 224, L 1536, bf16,
+    # lengths from the chat mix) and at phase 9 (a)'s f32 smollm-360m decode
+    # (8 rows, 5 groups of 3 heads, D 64, L 512, lengths 4 to 55).  The kernel
+    # within 2 (D + L) u of the sums of absolute terms of its plain version,
+    # plus a bf16 ulp of each probability and of the output where those are
+    # bf16 (tests/test_torch_cuda.py); bound: the valid K and V rows once, q,
+    # the lengths and the output, and 4 D FLOPs a valid position and head in
+    # f32; "library" ``scaled_dot_product_attention`` with the valid positions
+    # as its mask, a yardstick the port never calls.  Launches: phase 9's
+    # decodes, by the cache's dtype.
+    drng = np.random.default_rng(DECODE_ROWS)
+    for key, (b_a, g_a, gq_a, d_a, l_a, dt_a) in (
+            ("attn/decode/bfloat16", (DECODE_ROWS, 32, 1, 224, HEAD_SEQ, torch.bfloat16)),
+            ("attn/decode/float32", (LM_BATCH, 5, 3, 64, LM_SEQ, torch.float32))):
+        if l_a == HEAD_SEQ:
+            prompt = np.minimum(drng.lognormal(np.log(161.31) - 0.5, 1.0, b_a), 512)
+            new = np.minimum(drng.lognormal(np.log(337.99) - 0.245, 0.7, b_a), 1024)
+            cl_np = (prompt + drng.random(b_a) * new).astype(np.int64)
+        else:
+            cl_np = drng.integers(4, 48 + LM_NEW, b_a)
+        agen = torch.Generator(device=dev).manual_seed(b_a)
+        q_a, k_a, v_a = (torch.randn(s, generator=agen, device=dev, dtype=dt_a) for s in
+                         ((b_a, g_a, gq_a, 1, d_a), (b_a, g_a, l_a, d_a), (b_a, g_a, l_a, d_a)))
+        cl_a = torch.from_numpy(cl_np).to(dev)
+        sc_a = d_a ** -0.5
+        run_k = lambda: da.decode_attention(q_a, k_a, v_a, cl_a, sc_a, dt_a)  # noqa: E731
+        run_p = lambda: da.decode_attention_ref(q_a, k_a, v_a, cl_a, sc_a, dt_a)  # noqa: E731
+        got = run_k().float()
+        want = da.decode_attention_ref(q_a, k_a, v_a, cl_a, sc_a, torch.float32)
+        absref = da.decode_attention_ref(q_a, k_a, v_a.abs(), cl_a, sc_a, torch.float32)
+        torch.cuda.synchronize()
+        ulp = 2.0 ** -7 if dt_a == torch.bfloat16 else 0.0
+        allowed = (2 * (d_a + l_a) * F32_UNIT_ROUNDOFF + ulp) * absref + ulp * want.abs()
+        diff = (got - want).abs()
+        if bool((diff > allowed).any()):
+            fail(f"decode_attention {key}: {int((diff > allowed).sum())} elements beyond the "
+                 f"tolerance (max err {float(diff.max())})")
+        err = float(diff.max())
+        del got, want, absref, diff, allowed
+        mask_a = (torch.arange(l_a, device=dev)[None, :]
+                  < torch.clamp(cl_a + 1, max=l_a)[:, None])[:, None, None]
+        q_h = q_a.reshape(b_a, g_a * gq_a, 1, d_a)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q_h, k_a, v_a, attn_mask=mask_a, scale=sc_a, enable_gqa=gq_a > 1)
+        valid = int(np.minimum(cl_np + 1, l_a).sum())
+        b_ms, b_by = bound(2 * valid * g_a * d_a * k_a.element_size()
+                           + 2 * nbytes(q_a) + nbytes(cl_a), 0.0,
+                           4.0 * valid * g_a * gq_a * d_a)
+        record(key, f"decode_attention {dt_a} cache: {b_a} rows x {g_a} groups of {gq_a}, "
+               f"D {d_a}, L {l_a}, {100 * valid / (b_a * l_a):.1f} % valid",
+               "src/repro_torch/kernels/csrc/decode_attention.cu",
+               "src/repro/nn/modules.py:286 (jnp, no Pallas kernel)", err, run_k, run_p,
+               b_ms, b_by, library=library)
+        del q_a, k_a, v_a, mask_a, q_h
+    torch.cuda.empty_cache()
+
     g_db = bank_lib.group_by_slot_padded(pkt.slot_of(x_db, K_DB), K_DB, BLOCK_B)
     kw_db = dict(block_b=BLOCK_B, meta_words=16, with_actions=True)
     both_args = (both["w1p"], both["b1"], both["w2"], both["b2"])
@@ -2638,12 +2723,14 @@ def main() -> int:
         bnn_xnor.xnor_matmul.launches.clear()
         bm.banked_matmul.launches.clear()
         bm.banked_xnor_layer1.launches = 0
+        da.decode_attention.launches.clear()
         result = part()
         torch.cuda.synchronize()
         return result, {"fused": dict(ff.fused_forward.launches),
                         "xnor": dict(bnn_xnor.xnor_matmul.launches),
                         "banked_matmul": dict(bm.banked_matmul.launches),
-                        "banked_xnor": bm.banked_xnor_layer1.launches}
+                        "banked_xnor": bm.banked_xnor_layer1.launches,
+                        "decode_attention": dict(da.decode_attention.launches)}
 
     end_to_end = {}
 
@@ -3033,9 +3120,9 @@ def main() -> int:
     end_to_end["mesh"] = mesh_out
 
     for key, e in entries.items():
-        # phase 8's rows and phase 9's head rows are counted there
+        # phase 8's rows and phase 9's head and decode attention rows are counted there
         if e["launches"] < 1 and not key.endswith(f"/bb{CLI_BLOCK_B}") \
-                and not key.startswith("mm/bf16.f32out/head"):
+                and not key.startswith(("mm/bf16.f32out/head", "attn/decode/")):
             fail(f"{e['name']} was not launched on the main path")
 
     # -- 5. where the time goes -----------------------------------------------

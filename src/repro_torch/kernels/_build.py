@@ -36,6 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: C signature of each library's launch function: name -> (symbol, argtypes).
 SIGNATURES = {
@@ -64,6 +66,15 @@ SIGNATURES = {
         _I, _I, _I, _I, _I,  # n_blocks, block_b, D, H, num_slots
         _I, _P,              # variant (0 f32/fma, 1 bf16/fma, 2 bf16/wgmma,
                              # 3 bf16/wgmma.f32out), stream
+    ]),
+    "decode_attention": ("decode_attention_launch", [
+        _P, _P, _P, _P,      # q, k, v, cache_len
+        _P, _P, _P,          # scores, partial (f32 scratch), out
+        _I, _I, _I, _I, _I,  # B, G, M (queries a group), L, D
+        _LL, _LL, _LL,       # the caches' row, group and position strides
+        _F,                  # scale
+        _I, _I, _I, _I,      # q_bf16, kv_bf16, out_bf16, chunk
+        _P,                  # stream
     ]),
 }
 

@@ -31,6 +31,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import decode_attention
 
 F32 = torch.float32
 NEG = torch.finfo(torch.float32).min
@@ -658,30 +659,36 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
             scale=scale)
         new_cache = {"k": k, "v": v}
     else:
-        lcache = kv_cache["k"].shape[2]
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        lcache = ck.shape[2]
         cl = torch.as_tensor(cache_len, device=x.device).reshape(-1).expand(bsz).long()
         slot = cl % lcache if cfg.sliding_window is not None else cl
-        kpos = torch.arange(lcache, device=x.device)
-        if cfg.sliding_window is None:
-            valid = kpos[None, :] <= cl[:, None]
-        else:  # ring buffer: everything resident is in-window
-            valid = kpos[None, :] < torch.clamp(cl + 1, max=lcache)[:, None]
+
+        def valid():
+            kpos = torch.arange(lcache, device=x.device)
+            if cfg.sliding_window is None:
+                return kpos[None, :] <= cl[:, None]
+            # ring buffer: everything resident is in-window
+            return kpos[None, :] < torch.clamp(cl + 1, max=lcache)[:, None]
 
         if "k_scale" in kv_cache:
-            out, new_cache = _decode_attention_int8(q, k, v, kv_cache, slot, valid, scale)
+            out, new_cache = _decode_attention_int8(q, k, v, kv_cache, slot, valid(), scale)
         else:
-            ck, cv = kv_cache["k"], kv_cache["v"]
             _write_rows(ck, k, slot)
             _write_rows(cv, v, slot)
-            scores = _qk(q, ck) * scale
-            scores = torch.where(valid[:, None, None, None], scores, NEG)
-            probs, vd, idle = _idle_heads(torch.softmax(scores, dim=-1), cv)
-            out = _pv(probs, vd)
-            if idle:
-                out = reshape(out.redistribute(out.device_mesh, [
-                    Replicate() if i in idle else p for i, p in enumerate(out.placements)]),
-                    bsz, g, gq, s, hd)
             new_cache = kv_cache
+            if not isinstance(ck, DTensor):
+                # each row's valid positions in the cache's dtype (a kernel on the card)
+                out = decode_attention(q, ck, cv, cl, scale, x.dtype)
+            else:
+                scores = _qk(q, ck) * scale
+                scores = torch.where(valid()[:, None, None, None], scores, NEG)
+                probs, vd, idle = _idle_heads(torch.softmax(scores, dim=-1), cv)
+                out = _pv(probs, vd)
+                if idle:
+                    out = reshape(out.redistribute(out.device_mesh, [
+                        Replicate() if i in idle else p for i, p in enumerate(out.placements)]),
+                        bsz, g, gq, s, hd)
         out = out.to(x.dtype)
 
     out = reshape(out.permute(0, 3, 1, 2, 4), bsz, s, hq * hd)

@@ -15,10 +15,15 @@ kernels ragged blocks, D and H, row tiles that would cross a block, H past
 the wgmma column tile, out-of-range slot ids and both dtypes; each
 banked_matmul case checks the variant that ran (``matmul_variant``); the
 f32-output variant at the banked LM head's shape, and the bf16-output
-variant as its sums rounded once.
+variant as its sums rounded once.  Decode attention at
+zamba2-7b-instruct.chat64-sat's shape and four others (f32 and bf16
+caches, a ring, 1 to 16 query heads a group), reading nothing past a row's
+length (NaN there changes no bit), and a tiny zamba2 decode step against
+the CPU.
 Last, one run of the data-plane CLI on the card, its every tick served by
-the fused kernel; the runtime's spans under a profiler of host and device; the LM serving engine and the LM trainer on the card
-(preempted and resumed), neither launching a kernel of the port; a sharded
+the fused kernel; the runtime's spans under a profiler of host and device;
+the LM serving engine (no kernel of the port but decode attention) and the
+LM trainer (none) on the card (preempted and resumed); a sharded
 train step and ``compressed_psum`` over a one-rank NCCL mesh, bit-equal to
 the unsharded step and to the codec.
 """
@@ -31,6 +36,7 @@ from repro_torch.core import bank as tbank
 from repro_torch.core import packet as pkt
 from repro_torch.kernels import banked_matmul as bm
 from repro_torch.kernels import bnn_xnor, fused_forward as ff, ref
+from repro_torch.kernels import decode_attention as da
 
 pytestmark = pytest.mark.cuda
 
@@ -290,6 +296,150 @@ def test_banked_kernels_reject_what_they_cannot_take(dev):
                          slots, block_b=8)
 
 
+# Decode attention (``kernels.decode_attention``): (rows, groups, query heads
+# a group, head dim, cache positions, cache dtype, ring cache).  First
+# zamba2-7b-instruct.chat64-sat's sites, then phase 9 (a)'s f32 smollm-360m,
+# glm4-9b's 16 heads a group over a cache that ends inside a chunk, a
+# reduced ring cache and the least head dim.
+DECODE_SHAPES = [
+    (64, 32, 1, 224, 1536, torch.bfloat16, False),
+    (8, 5, 3, 64, 512, torch.float32, False),
+    (6, 2, 16, 128, 300, torch.bfloat16, False),
+    (5, 2, 2, 16, 32, torch.float32, True),
+    (3, 1, 5, 8, 700, torch.bfloat16, False),
+]
+
+
+def _decode_inputs(shape, seed, dev):
+    """q, and K and V as layer 1 of a stacked (2, B, G, L, D) cache (the
+    engine's layout); cache lengths for chat64-sat's mix (ShareGPT's
+    log-normal means 161.31 in and 337.99 out, sigma 1.0 and 0.7, cut at 512
+    and 1024, a row part-way through its output), else uniform over [0, 2 L);
+    rows 0 to 2 at 0, L - 1 and past L (clamped by both masks)."""
+    b, g, gq, d, lc, dtype, ring = shape
+    rng = np.random.default_rng(seed)
+    if lc == 1536:
+        prompt = np.minimum(rng.lognormal(np.log(161.31) - 0.5, 1.0, b), 512).astype(int)
+        out = np.minimum(rng.lognormal(np.log(337.99) - 0.245, 0.7, b), 1024).astype(int)
+        cl = prompt + (rng.random(b) * out).astype(int)
+    else:
+        cl = rng.integers(0, 2 * lc, b)
+    cl[:3] = [0, lc - 1, lc + 3 if not ring else 5 * lc + 2]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, cache = (torch.randn(s, generator=gen, device=dev, dtype=dtype)
+                for s in ((b, g, gq, 1, d), (2, 2, b, g, lc, d)))
+    return q, cache[0, 1], cache[1, 1], torch.from_numpy(cl).to(dev)
+
+
+def _decode_tolerance(want, absref, d, lc, kv_dtype, out_dtype):
+    """The kernel and the plain version sum the D-term scores and the L-term
+    value products in other orders (within 2 (D + L) u of the sums of
+    absolute terms, u f32's unit roundoff); a bf16 cache rounds each
+    probability, which may land one bf16 ulp (2**-7 relative) apart, and a
+    bf16 output may round one ulp apart."""
+    rel = 2 * (d + lc) * 2.0 ** -24 + (2.0 ** -7 if kv_dtype == torch.bfloat16 else 0.0)
+    out_ulp = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    return rel * absref + out_ulp * want.abs()
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_attention_kernel_matches_plain(dev, shape):
+    b, g, gq, d, lc, dtype, ring = shape
+    q, k, v, cl = _decode_inputs(shape, b * d + lc, dev)
+    scale = d ** -0.5
+    key = str(dtype).removeprefix("torch.")
+    before = da.decode_attention.launches[key]
+    got = da.decode_attention(q, k, v, cl, scale, dtype)
+    again = da.decode_attention(q, k, v, cl, scale, dtype)
+    want = da.decode_attention_ref(q, k, v, cl, scale, torch.float32)
+    absref = da.decode_attention_ref(q, k, v.abs(), cl, scale, torch.float32)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches[key] == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)  # sums in a fixed order
+    diff = (got.float() - want).abs()
+    assert bool((diff <= _decode_tolerance(want, absref, d, lc, dtype, dtype)).all()), \
+        float(diff.max())
+
+
+def test_decode_attention_reads_no_position_past_a_rows_length(dev):
+    """Every K and V position at or past min(cache_len + 1, L) set to NaN:
+    the kernel's output is the same to the bit."""
+    shape = DECODE_SHAPES[0]
+    q, k, v, cl = _decode_inputs(shape, 5, dev)
+    lc, scale = shape[4], shape[3] ** -0.5
+    clean = da.decode_attention(q, k, v, cl, scale, torch.bfloat16)
+    past = torch.arange(lc, device=dev)[None, :] >= torch.clamp(cl + 1, max=lc)[:, None]
+    assert bool(past.any())
+    for t in (k, v):
+        t.masked_fill_(past[:, None, :, None], float("nan"))
+    poisoned = da.decode_attention(q, k, v, cl, scale, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(clean, poisoned)
+
+
+def test_decode_attention_refuses_what_it_cannot_take(dev):
+    q = torch.zeros(2, 1, 1, 1, 12, device=dev)
+    cl = torch.zeros(2, dtype=torch.int64, device=dev)
+    kv = torch.zeros(2, 1, 16, 12, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        da.decode_attention(q, kv, kv, cl, 1.0, torch.float32)
+    q, kv = torch.zeros(2, 1, 1, 1, 16, device=dev), torch.zeros(2, 1, 16, 16, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        da.decode_attention(q, kv.half(), kv.half(), cl, 1.0, torch.float32)
+    odd = torch.zeros(2, 1, 16, 18, device=dev)[..., 1:17]
+    with pytest.raises(ValueError, match="16-byte"):
+        da.decode_attention(q, odd, odd, cl, 1.0, torch.float32)
+
+
+def test_zamba2_decode_step_on_the_card(dev):
+    """One decode step of a tiny zamba2 (f32, three sites) from a random
+    cache with rows at their own lengths, on the card against the CPU: a
+    prefill launches no decode attention; the logits within 2e-4 (f32 in
+    other orders, as the CPU tests hold the port to the float32
+    reference), the written caches within 1e-4, and the kernel launched
+    once a site."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(
+        get_config("zamba2-7b-instruct"), n_layers=8, d_model=64, n_heads=4, n_kv_heads=4,
+        head_dim=32, d_ff=96, ssm_state=16, ssm_head_dim=16, ssm_chunk=16,
+        hybrid_layer_ids=(1, 3, 6), shared_adapter_rank=8, vocab_size=250,
+        vocab_pad_multiple=32, dtype="float32")
+    params = api.init(0, cfg, device="cpu")
+    rng = np.random.default_rng(11)
+    cache = api.init_cache(cfg, 3, 64, device="cpu")
+
+    def fill(t):
+        if isinstance(t, dict):
+            return {n: fill(x) for n, x in t.items()}
+        return torch.from_numpy((rng.standard_normal(t.shape) * 0.5).astype(np.float32))
+    cache = fill(cache)
+    card_cache = {n: {m: x.to(dev) for m, x in c.items()} if isinstance(c, dict) else c.to(dev)
+                  for n, c in copy.deepcopy(cache).items()}
+    tokens = torch.from_numpy(rng.integers(0, 250, (3, 1)))
+    cl = torch.tensor([0, 17, 63])
+    card = copy.deepcopy(params).to(dev)
+    da.decode_attention.launches.clear()
+    with torch.inference_mode():
+        api.apply(card, {"tokens": torch.from_numpy(rng.integers(0, 250, (2, 40))).to(dev)}, cfg)
+        torch.cuda.synchronize()
+        assert not da.decode_attention.launches  # a prefill runs the flash loop
+        want, cache = api.decode_step(params, tokens, cache, cl, cfg)
+        got, card_cache = api.decode_step(card, tokens.to(dev), card_cache, cl.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert dict(da.decode_attention.launches) == {"float32": len(cfg.hybrid_layer_ids)}
+    np.testing.assert_allclose(got.cpu().numpy()[..., :250], want.numpy()[..., :250],
+                               rtol=0, atol=2e-4)
+    for n in ("k", "v"):
+        np.testing.assert_allclose(card_cache["kv"][n].cpu().numpy(), cache["kv"][n].numpy(),
+                                   rtol=0, atol=1e-4)
+
+
 def test_dataplane_cli_on_the_card(dev, tmp_path):
     """``python -m repro_torch.launch.dataplane --queues 4 --audit`` in
     process, on its default device: conserved, no wrong verdict, and the
@@ -359,7 +509,8 @@ def test_dataplane_spans_on_the_card(dev):
 def test_serve_engine_on_the_card(dev):
     """A reduced smollm-360m (f32) served on the card by ``ServeEngine``
     built without a device: each output is the card's own no-cache greedy
-    decode through ``api.apply``, and no BNN kernel is launched."""
+    decode through ``api.apply``; no BNN kernel is launched, and the decode
+    attention runs on its f32 kernel."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import api
     from repro_torch.serve.engine import Request, ServeEngine
@@ -371,11 +522,13 @@ def test_serve_engine_on_the_card(dev):
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 9, 17)]
     ff.fused_forward.launches.clear()
     bm.banked_matmul.launches.clear()
+    da.decode_attention.launches.clear()
     eng = ServeEngine(params, cfg, max_batch=4, max_seq=64, prefill_buckets=(8, 32))
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=5))
     outs = {f.rid: f.output for f in eng.run_until_done()}
     assert not ff.fused_forward.launches and not bm.banked_matmul.launches
+    assert set(da.decode_attention.launches) == {"float32"}
     with torch.inference_mode():
         for rid, p in enumerate(prompts):
             toks, want = list(p), []
